@@ -1,0 +1,46 @@
+// Plain C entry points of the ed25519 kernels, loaded with ctypes by
+// ops/_build.py. Each returns the cudaError_t of its launch (0 = launched);
+// the Python wrapper raises on anything else. Pointers are device
+// pointers from torch tensors, `stream` is PyTorch's current stream.
+#include <stdint.h>
+#include <cuda_runtime.h>
+
+namespace tmk {
+cudaError_t set_constants(const void* host, size_t bytes);
+cudaError_t launch_prepare(const uint8_t*, const uint8_t*, const uint8_t*, int, int, int8_t*, int8_t*,
+                           int32_t*, uint8_t*, uint8_t*, cudaStream_t);
+cudaError_t launch_scan(const int8_t*, const int8_t*, const int32_t*, int, int32_t*, cudaStream_t);
+cudaError_t launch_finish(const int32_t*, const uint8_t*, const uint8_t*, const uint8_t*, const int64_t*,
+                          const uint8_t*, int, uint8_t*, unsigned long long*, cudaStream_t);
+}  // namespace tmk
+
+extern "C" {
+
+int tm_set_constants(int device, const void* host, size_t bytes) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)tmk::set_constants(host, bytes);
+}
+
+const char* tm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+int tm_ed25519_prepare(const void* pk, const void* msg, const void* sig, int n, int mlen, void* sd, void* kd,
+                       void* neg_a, void* a_ok, void* s_ok, void* stream) {
+  return (int)tmk::launch_prepare((const uint8_t*)pk, (const uint8_t*)msg, (const uint8_t*)sig, n, mlen,
+                                 (int8_t*)sd, (int8_t*)kd, (int32_t*)neg_a, (uint8_t*)a_ok,
+                                 (uint8_t*)s_ok, (cudaStream_t)stream);
+}
+
+int tm_ed25519_scan(const void* sd, const void* kd, const void* neg_a, int n, void* out, void* stream) {
+  return (int)tmk::launch_scan((const int8_t*)sd, (const int8_t*)kd, (const int32_t*)neg_a, n,
+                              (int32_t*)out, (cudaStream_t)stream);
+}
+
+int tm_ed25519_finish(const void* pt, const void* sig, const void* a_ok, const void* s_ok, const void* power,
+                      const void* counted, int n, void* ok, void* tally, void* stream) {
+  return (int)tmk::launch_finish((const int32_t*)pt, (const uint8_t*)sig, (const uint8_t*)a_ok,
+                                (const uint8_t*)s_ok, (const int64_t*)power, (const uint8_t*)counted, n,
+                                (uint8_t*)ok, (unsigned long long*)tally, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,238 @@
+// The three kernels of batched ed25519 verification (Go x/crypto's
+// cofactorless acceptance), one thread per signature row.
+//
+//   ed25519_prepare  replaces ops/ed25519.py verify_stage_prepare
+//   ed25519_scan     replaces ops/ed25519.py verify_stage_scan
+//   ed25519_finish   replaces ops/ed25519.py verify_stage_finish and
+//                    verify_stage_finish_tally
+//
+// (paths in the JAX package, tendermint_tpu/). The intermediates between
+// them (signed digits, -A, the result point) stay on the card.
+//
+// What bounds them: 32-bit integer multiply-adds. A field multiplication
+// is 100 IMAD.WIDE (fe25519.cuh); the scan does about 2,900 of them a
+// row (256 doublings at 7-8 each, 128 cached additions at 7-8, the
+// [1..8](-A) table), prepare and finish about 270 each, nearly all in one
+// exponentiation (the square root in decompression, the inversion in
+// encode). Every row's work is the same, so the kernels have no
+// divergence except at the table selects. Bytes are small: about 550 B
+// a row in and out of prepare, under 450 B for the others.
+//
+// What the design does about it: the simple form first. Radix 2^25.5 so
+// that every product is one IMAD.WIDE; one thread per row, so a row's
+// whole scan runs in registers with no exchange between threads; the
+// per-row [1..8](-A) table (1.3 KB) sits in local memory (L1-cached); the
+// constant [1..8]B table and the curve constants sit in __constant__
+// memory, uploaded from the host's pure-Python oracle. Blocks of 64
+// threads spread 10,000 rows over all 132 SMs. Not yet done: a dedicated
+// squaring (55 products instead of 100), several threads per row, and
+// batched inversion in finish.
+#include <stdint.h>
+#include <cuda_runtime.h>
+
+#include "fe25519.cuh"
+#include "ge25519.cuh"
+#include "sc25519.cuh"
+#include "sha512.cuh"
+
+namespace tmk {
+
+__constant__ TmConstants c_k;
+
+constexpr int kBlock = 64;
+
+// Base-16 digits of a 32-byte scalar recoded to signed digits in [-8, 8)
+// (as curve.signed_digits; the carry out of digit 63 is dropped).
+__device__ __forceinline__ void signed_digits(int8_t* out, const uint8_t* b) {
+  int carry = 0;
+#pragma unroll
+  for (int i = 0; i < 64; i++) {
+    const int v = ((b[i >> 1] >> (4 * (i & 1))) & 15) + carry;
+    carry = v >= 8;
+    out[i] = (int8_t)(v - 16 * carry);
+  }
+}
+
+__device__ __forceinline__ void store_fe(int32_t* dst, const fe& f) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) dst[i] = f.v[i];
+}
+
+__device__ __forceinline__ void load_fe(fe& f, const int32_t* src) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) f.v[i] = src[i];
+}
+
+// Replaces verify_stage_prepare (ops/ed25519.py:56): sha512 (ops/sha512.py:176),
+// sc.reduce512 / sc.is_canonical (ops/sc.py:147, :165), curve.decompress
+// (ops/curve.py:156), curve.negate, nibble_digits / signed_digits (:391-416).
+// Bound: 275 field multiplications a row (262 of them the square root's
+// exponentiation), 100 IMAD.WIDE each; SHA-512's two blocks are 64-bit
+// adds and rotates. Inputs 256 B and outputs 290 B a row.
+// pk (N,32) u8, msg (N,mlen) u8, sig (N,64) u8 ->
+// sd, kd (N,64) i8, neg_a (N,4,10) i32, a_ok, s_ok (N,) u8
+__global__ void __launch_bounds__(kBlock) ed25519_prepare(
+    const uint8_t* __restrict__ pk, const uint8_t* __restrict__ msg, const uint8_t* __restrict__ sig,
+    int n, int mlen, int8_t* __restrict__ sd, int8_t* __restrict__ kd, int32_t* __restrict__ neg_a,
+    uint8_t* __restrict__ a_ok, uint8_t* __restrict__ s_ok) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const uint8_t* p = pk + 32 * (size_t)row;
+  const uint8_t* m = msg + (size_t)mlen * row;
+  const uint8_t* s = sig + 64 * (size_t)row;
+
+  uint8_t sb[32];
+#pragma unroll
+  for (int i = 0; i < 32; i++) sb[i] = s[32 + i];
+  s_ok[row] = sc_is_canonical(sb);
+  signed_digits(sd + 64 * (size_t)row, sb);
+
+  ge_p3 A;
+  a_ok[row] = ge_decompress(A, p, c_k);
+  fe_neg(A.X, A.X);
+  fe_neg(A.T, A.T);
+  int32_t* dst = neg_a + 40 * (size_t)row;
+  store_fe(dst, A.X);
+  store_fe(dst + 10, A.Y);
+  store_fe(dst + 20, A.Z);
+  store_fe(dst + 30, A.T);
+
+  uint8_t h[64], k[32];
+  tm_sha512_preimage(h, s, p, m, mlen, c_k.sha512_k);
+  sc_reduce(k, h);
+  signed_digits(kd + 64 * (size_t)row, k);
+}
+
+// Replaces verify_stage_scan (ops/ed25519.py:79) ->
+// curve.double_scalar_mul_signed (ops/curve.py:605-641).
+// Bound: 2,887 field multiplications a row -- 71 for the [1..8](-A) table
+// (7 additions at 9, 8 conversions at 1), then 64 windows of four shared
+// doublings (three at 7 without T, one at 8) and two cached additions (8,
+// and 7 without T) -- at 100 IMAD.WIDE each, about 289,000 a row. Bytes
+// (288 B in, 160 B out a row) are negligible beside that.
+// sd, kd (N,64) i8, neg_a (N,4,10) i32 -> [s]B + [k](-A) as (N,4,10) i32
+__global__ void __launch_bounds__(kBlock) ed25519_scan(
+    const int8_t* __restrict__ sd, const int8_t* __restrict__ kd, const int32_t* __restrict__ neg_a,
+    int n, int32_t* __restrict__ out) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  fe d2;
+  fe_load_const(d2, c_k.d2);
+  ge_p3 q;
+  const int32_t* src = neg_a + 40 * (size_t)row;
+  load_fe(q.X, src);
+  load_fe(q.Y, src + 10);
+  load_fe(q.Z, src + 20);
+  load_fe(q.T, src + 30);
+
+  ge_cached tbl[8];  // [1..8]q, built as curve.double_scalar_mul_signed does
+  ge_p3 acc = q;
+#pragma unroll 1
+  for (int i = 0; i < 8; i++) {
+    ge_to_cached(tbl[i], acc, d2);
+    if (i < 7) ge_add(acc, acc, q, d2);
+  }
+
+  const int8_t* sdr = sd + 64 * (size_t)row;
+  const int8_t* kdr = kd + 64 * (size_t)row;
+  ge_identity(acc);
+#pragma unroll 1
+  for (int w = 63; w >= 0; w--) {
+    ge_double(acc, acc, false);
+    ge_double(acc, acc, false);
+    ge_double(acc, acc, false);
+    ge_double(acc, acc, true);
+    ge_cached c;
+    const int sdig = sdr[w];
+    const int smag = sdig < 0 ? -sdig : sdig;
+    const int si = smag > 0 ? smag - 1 : 0;
+    load_fe(c.ypx, c_k.base[si][0]);
+    load_fe(c.ymx, c_k.base[si][1]);
+    load_fe(c.z2, c_k.base[si][2]);
+    load_fe(c.t2d, c_k.base[si][3]);
+    ge_select_fix(c, sdig);
+    ge_add_cached(acc, acc, c, true);
+    const int kdig = kdr[w];
+    const int kmag = kdig < 0 ? -kdig : kdig;
+    c = tbl[kmag > 0 ? kmag - 1 : 0];
+    ge_select_fix(c, kdig);
+    ge_add_cached(acc, acc, c, false);
+  }
+  int32_t* dst = out + 40 * (size_t)row;
+  store_fe(dst, acc.X);
+  store_fe(dst + 10, acc.Y);
+  store_fe(dst + 20, acc.Z);
+  store_fe(dst + 30, acc.T);
+}
+
+// Replaces verify_stage_finish (ops/ed25519.py:85) and
+// verify_stage_finish_tally (:92) with curve.encode (ops/curve.py:133).
+// Bound: 267 field multiplications a row, 265 of them one inversion
+// (Fermat, z^(p-2)); the tally is one block reduction and one 64-bit
+// atomicAdd per block instead of the JAX package's four 16-bit chunk sums.
+// pt (N,4,10) i32, sig (N,64) u8, a_ok, s_ok (N,) u8 -> ok (N,) u8; with
+// power != nullptr also *tally += sum of power where ok & counted.
+__global__ void __launch_bounds__(kBlock) ed25519_finish(
+    const int32_t* __restrict__ pt, const uint8_t* __restrict__ sig, const uint8_t* __restrict__ a_ok,
+    const uint8_t* __restrict__ s_ok, const int64_t* __restrict__ power,
+    const uint8_t* __restrict__ counted, int n, uint8_t* __restrict__ ok_out,
+    unsigned long long* __restrict__ tally) {
+  __shared__ unsigned long long part[kBlock];
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned long long mine = 0;
+  if (row < n) {
+    ge_p3 p;
+    const int32_t* src = pt + 40 * (size_t)row;
+    load_fe(p.X, src);
+    load_fe(p.Y, src + 10);
+    load_fe(p.Z, src + 20);
+    fe_set_small(p.T, 0);
+    uint8_t enc[32];
+    ge_encode(enc, p);
+    const uint8_t* r = sig + 64 * (size_t)row;
+    bool match = true;
+#pragma unroll
+    for (int i = 0; i < 32; i++) match &= enc[i] == r[i];
+    const bool ok = match && a_ok[row] && s_ok[row];
+    ok_out[row] = ok;
+    if (power != nullptr && ok && counted[row]) mine = (unsigned long long)power[row];
+  }
+  if (power == nullptr) return;  // uniform across the block
+  part[threadIdx.x] = mine;
+  __syncthreads();
+#pragma unroll
+  for (int stride = kBlock / 2; stride > 0; stride >>= 1) {
+    if (threadIdx.x < stride) part[threadIdx.x] += part[threadIdx.x + stride];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0 && part[0] != 0) atomicAdd(tally, part[0]);
+}
+
+static inline int grid_for(int n) { return (n + kBlock - 1) / kBlock; }
+
+cudaError_t set_constants(const void* host, size_t bytes) {
+  if (bytes != sizeof(TmConstants)) return cudaErrorInvalidValue;
+  return cudaMemcpyToSymbol(c_k, host, bytes);
+}
+
+cudaError_t launch_prepare(const uint8_t* pk, const uint8_t* msg, const uint8_t* sig, int n, int mlen,
+                           int8_t* sd, int8_t* kd, int32_t* neg_a, uint8_t* a_ok, uint8_t* s_ok,
+                           cudaStream_t stream) {
+  ed25519_prepare<<<grid_for(n), kBlock, 0, stream>>>(pk, msg, sig, n, mlen, sd, kd, neg_a, a_ok, s_ok);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_scan(const int8_t* sd, const int8_t* kd, const int32_t* neg_a, int n, int32_t* out,
+                        cudaStream_t stream) {
+  ed25519_scan<<<grid_for(n), kBlock, 0, stream>>>(sd, kd, neg_a, n, out);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_finish(const int32_t* pt, const uint8_t* sig, const uint8_t* a_ok, const uint8_t* s_ok,
+                          const int64_t* power, const uint8_t* counted, int n, uint8_t* ok,
+                          unsigned long long* tally, cudaStream_t stream) {
+  ed25519_finish<<<grid_for(n), kBlock, 0, stream>>>(pt, sig, a_ok, s_ok, power, counted, n, ok, tally);
+  return cudaGetLastError();
+}
+
+}  // namespace tmk

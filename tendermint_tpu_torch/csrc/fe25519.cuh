@@ -1,0 +1,255 @@
+// GF(2^255 - 19) for one element per thread.
+//
+// Counterpart of the JAX package's ops/field.py (20 limbs of 13 bits in
+// int32, because the TPU's vector unit has no 64-bit integers) and of the
+// port's plain ops/field.py. Layout: ref10's 10 signed limbs in radix
+// 2^25.5 (limb i at bit ceil(25.5 i), 26 bits for even i, 25 for odd i),
+// stored as int32.
+//
+// Why radix 2^25.5 and not 2^51: the card's integer multiplier is 32 bits
+// wide. A 32x32->64 product with a 64-bit accumulate is one IMAD.WIDE, so
+// a field multiplication is 100 of them and a column sum never leaves the
+// register pair. Five 51-bit limbs would need 25 64x64->128 products,
+// each built from four 32-bit multiplies plus the carries between them
+// (__umul64hi or unsigned __int128), with no saving.
+//
+// Bounds: every stored limb is within +-(2^26 + 2^10). A product of a
+// limb (doubled for odd*odd) and 19 times a limb is below 2^57.3, a column
+// of ten below 2^61, so int64 columns never overflow; 19 * limb fits
+// int32. fe_mul leaves limbs within that bound, and fe_add / fe_sub /
+// fe_neg run one floor-carry pass, so sums never pile up across a formula.
+#pragma once
+#include <stdint.h>
+
+struct fe {
+  int32_t v[10];
+};
+
+__device__ __forceinline__ int fe_width(int i) { return (i & 1) ? 25 : 26; }
+
+__device__ __forceinline__ void fe_set_small(fe& h, int32_t x) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = 0;
+  h.v[0] = x;
+}
+
+__device__ __forceinline__ void fe_load_const(fe& h, const int32_t* c) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = c[i];
+}
+
+// One sequential floor-carry pass on int32 limbs; the carry out of limb
+// 9 re-enters limb 0 times 19 (2^255 = 19 mod p).
+__device__ __forceinline__ void fe_weak(fe& h) {
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    const int w = fe_width(i);
+    const int32_t c = h.v[i] >> w;
+    h.v[i] &= (1 << w) - 1;
+    h.v[i + 1] += c;
+  }
+  const int32_t c = h.v[9] >> 25;
+  h.v[9] &= (1 << 25) - 1;
+  h.v[0] += 19 * c;
+}
+
+__device__ __forceinline__ void fe_add(fe& h, const fe& f, const fe& g) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = f.v[i] + g.v[i];
+  fe_weak(h);
+}
+
+__device__ __forceinline__ void fe_sub(fe& h, const fe& f, const fe& g) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = f.v[i] - g.v[i];
+  fe_weak(h);
+}
+
+__device__ __forceinline__ void fe_neg(fe& h, const fe& f) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = -f.v[i];
+  fe_weak(h);
+}
+
+// h = f * g. Column k sums f_i g_j over i + j = k (mod 10), times 2 when
+// i and j are both odd and times 19 when i + j wraps past 10.
+__device__ __forceinline__ void fe_mul(fe& h, const fe& f, const fe& g) {
+  int32_t g19[10], f2[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    g19[i] = 19 * g.v[i];
+    f2[i] = (i & 1) ? 2 * f.v[i] : f.v[i];
+  }
+  int64_t t[10];
+#pragma unroll
+  for (int k = 0; k < 10; k++) {
+    int64_t s = 0;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      const int j = k - i;
+      const int jj = j < 0 ? j + 10 : j;
+      const int32_t gv = j < 0 ? g19[jj] : g.v[jj];
+      const int32_t fv = (jj & 1) ? f2[i] : f.v[i];
+      s += (int64_t)fv * (int64_t)gv;
+    }
+    t[k] = s;
+  }
+  // floor carries in ref10's interleaved order (two chains for ILP)
+#define TM_CARRY(i)                                  \
+  {                                                  \
+    const int w = fe_width(i);                       \
+    const int64_t c = t[i] >> w;                     \
+    t[i] &= ((int64_t)1 << w) - 1;                   \
+    if ((i) == 9) t[0] += 19 * c; else t[(i) + 1] += c; \
+  }
+  TM_CARRY(0) TM_CARRY(4) TM_CARRY(1) TM_CARRY(5) TM_CARRY(2) TM_CARRY(6)
+  TM_CARRY(3) TM_CARRY(7) TM_CARRY(4) TM_CARRY(8) TM_CARRY(9) TM_CARRY(0)
+#undef TM_CARRY
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = (int32_t)t[i];
+}
+
+// Squaring as a multiplication: the simple first version (a dedicated
+// square would take 55 products instead of 100).
+__device__ __forceinline__ void fe_sq(fe& h, const fe& f) { fe_mul(h, f, f); }
+
+__device__ __forceinline__ void fe_nsq(fe& h, const fe& f, int n) {
+  h = f;
+#pragma unroll 1
+  for (int i = 0; i < n; i++) fe_sq(h, h);
+}
+
+// z^((p-5)/8) = z^(2^252 - 3), ref10's chain.
+__device__ void fe_pow22523(fe& out, const fe& z) {
+  fe t0, t1, t2;
+  fe_sq(t0, z);
+  fe_nsq(t1, t0, 2);
+  fe_mul(t1, z, t1);
+  fe_mul(t0, t0, t1);
+  fe_sq(t0, t0);
+  fe_mul(t0, t1, t0);
+  fe_nsq(t1, t0, 5);
+  fe_mul(t0, t1, t0);
+  fe_nsq(t1, t0, 10);
+  fe_mul(t1, t1, t0);
+  fe_nsq(t2, t1, 20);
+  fe_mul(t1, t2, t1);
+  fe_nsq(t1, t1, 10);
+  fe_mul(t0, t1, t0);
+  fe_nsq(t1, t0, 50);
+  fe_mul(t1, t1, t0);
+  fe_nsq(t2, t1, 100);
+  fe_mul(t1, t2, t1);
+  fe_nsq(t1, t1, 50);
+  fe_mul(t0, t1, t0);
+  fe_nsq(t0, t0, 2);
+  fe_mul(out, t0, z);
+}
+
+// z^(p-2) = z^(2^255 - 21); 0 maps to 0.
+__device__ void fe_invert(fe& out, const fe& z) {
+  fe t0, t1, t2, t3;
+  fe_sq(t0, z);
+  fe_nsq(t1, t0, 2);
+  fe_mul(t1, z, t1);
+  fe_mul(t0, t0, t1);
+  fe_sq(t2, t0);
+  fe_mul(t1, t1, t2);
+  fe_nsq(t2, t1, 5);
+  fe_mul(t1, t2, t1);
+  fe_nsq(t2, t1, 10);
+  fe_mul(t2, t2, t1);
+  fe_nsq(t3, t2, 20);
+  fe_mul(t2, t3, t2);
+  fe_nsq(t2, t2, 10);
+  fe_mul(t1, t2, t1);
+  fe_nsq(t2, t1, 50);
+  fe_mul(t2, t2, t1);
+  fe_nsq(t3, t2, 100);
+  fe_mul(t2, t3, t2);
+  fe_nsq(t2, t2, 50);
+  fe_mul(t1, t2, t1);
+  fe_nsq(t1, t1, 5);
+  fe_mul(out, t1, t0);
+}
+
+// The representative in [0, p), every limb in [0, 2^width): three
+// sequential floor-carry chains bring the value into [0, 2^255), then
+// V + 19 >= 2^255 says V >= p, and (V + 19) mod 2^255 = V - p.
+__device__ __forceinline__ void fe_canonical(fe& h, const fe& f) {
+  h = f;
+#pragma unroll
+  for (int r = 0; r < 3; r++) {
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      const int w = fe_width(i);
+      const int32_t c = h.v[i] >> w;
+      h.v[i] &= (1 << w) - 1;
+      if (i < 9) h.v[i + 1] += c; else h.v[0] += 19 * c;
+    }
+  }
+  fe t = h;
+  t.v[0] += 19;
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    const int w = fe_width(i);
+    const int32_t c = t.v[i] >> w;
+    t.v[i] &= (1 << w) - 1;
+    t.v[i + 1] += c;
+  }
+  const bool ge_p = (t.v[9] >> 25) != 0;
+  t.v[9] &= (1 << 25) - 1;
+  if (ge_p) h = t;
+}
+
+__device__ __forceinline__ void fe_tobytes(uint8_t s[32], const fe& f) {
+  fe h;
+  fe_canonical(h, f);
+  uint64_t acc = 0;  // bit buffer, low bits first
+  int nbits = 0, j = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    acc |= (uint64_t)(uint32_t)h.v[i] << nbits;
+    nbits += fe_width(i);
+    while (nbits >= 8) {
+      s[j++] = (uint8_t)(acc & 0xff);
+      acc >>= 8;
+      nbits -= 8;
+    }
+  }
+  // 255 bits: the last 7 leave one partial byte
+  s[31] = (uint8_t)(acc & 0xff);
+}
+
+// 32 little-endian bytes; bit 255 is masked, y >= p is kept (used mod p).
+__device__ __forceinline__ void fe_frombytes(fe& h, const uint8_t* s) {
+  const int off[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const int j = off[i] >> 3, sh = off[i] & 7;
+    uint32_t w = (uint32_t)s[j] | ((uint32_t)s[j + 1] << 8) | ((uint32_t)s[j + 2] << 16);
+    if (j + 3 < 32) w |= (uint32_t)s[j + 3] << 24;
+    h.v[i] = (int32_t)((w >> sh) & ((1u << fe_width(i)) - 1));
+  }
+}
+
+__device__ __forceinline__ bool fe_eq(const fe& f, const fe& g) {
+  fe a, b;
+  fe_canonical(a, f);
+  fe_canonical(b, g);
+  bool eq = true;
+#pragma unroll
+  for (int i = 0; i < 10; i++) eq &= a.v[i] == b.v[i];
+  return eq;
+}
+
+__device__ __forceinline__ bool fe_isneg(const fe& f) {
+  fe a;
+  fe_canonical(a, f);
+  return a.v[0] & 1;
+}
+
+__device__ __forceinline__ void fe_cmov(fe& h, const fe& g, bool b) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = b ? g.v[i] : h.v[i];
+}

@@ -1,0 +1,218 @@
+"""Batched ed25519 verification in three stages, each a hand-written
+CUDA kernel on the card and a plain PyTorch version on the CPU.
+
+Counterpart of the JAX package's ``ops/ed25519.py`` generic path:
+
+    ok[i] = s_i < L
+          & decompress(A_i) succeeds
+          & encode([s_i]B + [k_i](-A_i)) == R_i    (byte equality)
+    with k_i = SHA512(R_i || A_i || M_i) mod L
+
+which is Go x/crypto's cofactorless acceptance (R is never
+decompressed, a non-canonical A.y is taken mod p, s >= L is rejected).
+
+Each wrapper checks device, dtype, shape and contiguity, then runs the
+plain version for a tensor on the CPU and launches its kernel for a
+tensor on the card (or raises: there is no fallback from one to the
+other). ``<wrapper>.launches`` counts kernel launches and nothing else.
+
+Seam layouts (the kernels' and the plain versions' are the same):
+  sd, kd  (N, 64) int8 signed window digits in [-8, 8), low first
+  neg_a   (N, 4, 10) int32 extended coordinates of -A (field limbs)
+  point   (N, 4, 10) int32 [s]B + [k](-A), T zeroed
+  a_ok, s_ok, ok (N,) bool; tally a 0-d int64 tensor
+The limbs of two versions may differ for the same value; they are
+compared at byte seams (``field.to_bytes``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from tendermint_tpu_torch.ops import curve, sc
+from tendermint_tpu_torch.ops.sha512 import sha512
+
+
+def _check(t: torch.Tensor, name: str, shape: Sequence[Optional[int]], dtype: torch.dtype,
+           device: torch.device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _route(device: torch.device) -> bool:
+    """True for the kernel, False for the plain version."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {device}")
+
+
+def _lib(device: torch.device):
+    from tendermint_tpu_torch.ops import _build
+
+    return _build.library(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# -- stage 1 ------------------------------------------------------------------
+
+
+def prepare_plain(pubkeys, msgs, sigs):
+    s_bytes = sigs[:, 32:]
+    s_ok = sc.is_canonical(s_bytes)
+    a_point, a_ok = curve.decompress(pubkeys)
+    neg_a = curve.negate(a_point)
+    k_bytes = sc.reduce512(sha512(torch.cat([sigs[:, :32], pubkeys, msgs], dim=1)))
+    sd = curve.signed_digits(curve.nibble_digits(s_bytes)).to(torch.int8)
+    kd = curve.signed_digits(curve.nibble_digits(k_bytes)).to(torch.int8)
+    return sd, kd, torch.stack(list(neg_a), dim=1).to(torch.int32), a_ok, s_ok
+
+
+def verify_stage_prepare(pubkeys: torch.Tensor, msgs: torch.Tensor, sigs: torch.Tensor):
+    """pubkeys (N,32) u8, msgs (N,M) u8, sigs (N,64) u8 ->
+    (sd, kd, neg_a, a_ok, s_ok): the challenge hash k reduced mod L, the
+    signed digits of s and k, -A by decompression, and the two checks."""
+    dev = pubkeys.device
+    n = pubkeys.shape[0]
+    _check(pubkeys, "pubkeys", (n, 32), torch.uint8, dev)
+    _check(msgs, "msgs", (n, None), torch.uint8, dev)
+    _check(sigs, "sigs", (n, 64), torch.uint8, dev)
+    if not _route(dev):
+        return prepare_plain(pubkeys, msgs, sigs)
+    sd = torch.empty((n, 64), dtype=torch.int8, device=dev)
+    kd = torch.empty((n, 64), dtype=torch.int8, device=dev)
+    neg_a = torch.empty((n, 4, 10), dtype=torch.int32, device=dev)
+    a_ok = torch.empty(n, dtype=torch.bool, device=dev)
+    s_ok = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        from tendermint_tpu_torch.ops._build import check
+
+        lib = _lib(dev)
+        check(lib, lib.tm_ed25519_prepare(
+            pubkeys.data_ptr(), msgs.data_ptr(), sigs.data_ptr(), n, msgs.shape[1],
+            sd.data_ptr(), kd.data_ptr(), neg_a.data_ptr(), a_ok.data_ptr(), s_ok.data_ptr(),
+            _stream(dev)), "ed25519_prepare launch")
+        verify_stage_prepare.launches += 1
+    return sd, kd, neg_a, a_ok, s_ok
+
+
+# -- stage 2 ------------------------------------------------------------------
+
+
+def scan_plain(sd, kd, neg_a):
+    q = curve.Point(*(neg_a[:, i].to(torch.int64) for i in range(4)))
+    p = curve.double_scalar_mul_signed(sd.to(torch.int64), kd.to(torch.int64), q)
+    return torch.stack(list(p), dim=1).to(torch.int32)
+
+
+def verify_stage_scan(sd: torch.Tensor, kd: torch.Tensor, neg_a: torch.Tensor) -> torch.Tensor:
+    """[s]B + [k](-A) by Straus (the dominant cost): (N, 4, 10) int32."""
+    dev = sd.device
+    n = sd.shape[0]
+    _check(sd, "sd", (n, 64), torch.int8, dev)
+    _check(kd, "kd", (n, 64), torch.int8, dev)
+    _check(neg_a, "neg_a", (n, 4, 10), torch.int32, dev)
+    if not _route(dev):
+        return scan_plain(sd, kd, neg_a)
+    out = torch.empty((n, 4, 10), dtype=torch.int32, device=dev)
+    if n:
+        from tendermint_tpu_torch.ops._build import check
+
+        lib = _lib(dev)
+        check(lib, lib.tm_ed25519_scan(
+            sd.data_ptr(), kd.data_ptr(), neg_a.data_ptr(), n, out.data_ptr(), _stream(dev)),
+            "ed25519_scan launch")
+        verify_stage_scan.launches += 1
+    return out
+
+
+# -- stage 3 ------------------------------------------------------------------
+
+
+def finish_plain(point, sigs, a_ok, s_ok, powers=None, counted=None):
+    p = curve.Point(*(point[:, i].to(torch.int64) for i in range(4)))
+    enc = curve.encode(p)
+    ok = (enc == sigs[:, :32]).all(dim=-1) & a_ok & s_ok
+    if powers is None:
+        return ok
+    return ok, torch.where(ok & counted, powers, torch.zeros_like(powers)).sum()
+
+
+def verify_stage_finish(point: torch.Tensor, sigs: torch.Tensor, a_ok: torch.Tensor,
+                        s_ok: torch.Tensor, *, tally: bool = False,
+                        powers: Optional[torch.Tensor] = None,
+                        counted: Optional[torch.Tensor] = None):
+    """Encode the point (one inversion a row), compare with R, AND with
+    a_ok and s_ok -> ok (N,) bool. With ``tally=True`` also the int64 sum
+    of ``powers`` (N,) int64 where ``ok & counted`` ((N,) bool), as a 0-d
+    tensor: returns (ok, tally)."""
+    dev = point.device
+    n = point.shape[0]
+    _check(point, "point", (n, 4, 10), torch.int32, dev)
+    _check(sigs, "sigs", (n, 64), torch.uint8, dev)
+    _check(a_ok, "a_ok", (n,), torch.bool, dev)
+    _check(s_ok, "s_ok", (n,), torch.bool, dev)
+    if tally:
+        _check(powers, "powers", (n,), torch.int64, dev)
+        _check(counted, "counted", (n,), torch.bool, dev)
+    elif powers is not None or counted is not None:
+        raise ValueError("powers and counted are read only with tally=True")
+    if not _route(dev):
+        return finish_plain(point, sigs, a_ok, s_ok, powers, counted)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    if n:
+        from tendermint_tpu_torch.ops._build import check
+
+        lib = _lib(dev)
+        check(lib, lib.tm_ed25519_finish(
+            point.data_ptr(), sigs.data_ptr(), a_ok.data_ptr(), s_ok.data_ptr(),
+            powers.data_ptr() if tally else None, counted.data_ptr() if tally else None,
+            n, ok.data_ptr(), total.data_ptr() if tally else None, _stream(dev)),
+            "ed25519_finish launch")
+        verify_stage_finish.launches += 1
+    return (ok, total) if tally else ok
+
+
+KERNELS = {
+    "ed25519_prepare": verify_stage_prepare,
+    "ed25519_scan": verify_stage_scan,
+    "ed25519_finish": verify_stage_finish,
+}
+for _fn in KERNELS.values():
+    _fn.launches = 0
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def verify(pubkeys, msgs, sigs) -> torch.Tensor:
+    """The three stages chained: (N,) bool."""
+    sd, kd, neg_a, a_ok, s_ok = verify_stage_prepare(pubkeys, msgs, sigs)
+    return verify_stage_finish(verify_stage_scan(sd, kd, neg_a), sigs, a_ok, s_ok)
+
+
+def verify_and_tally(pubkeys, msgs, sigs, powers, counted) -> Tuple[torch.Tensor, torch.Tensor]:
+    sd, kd, neg_a, a_ok, s_ok = verify_stage_prepare(pubkeys, msgs, sigs)
+    point = verify_stage_scan(sd, kd, neg_a)
+    return verify_stage_finish(point, sigs, a_ok, s_ok, tally=True, powers=powers, counted=counted)
