@@ -1,20 +1,26 @@
 """tendermint_tpu_torch: the port of tendermint_tpu from JAX on a TPU to
 PyTorch and hand-written CUDA kernels on an NVIDIA H100.
 
-This slice: ``ValidatorSet.verify_commit`` on the generic batched ed25519
-path, through three CUDA kernels (``ops/ed25519.py``, ``csrc/``). The
-package imports torch, numpy and the standard library, never jax and
-nothing of tendermint_tpu. Entry points run on the card unless the caller
-passes device="cpu".
+So far: ``ValidatorSet.verify_commit`` and the light client's
+``ValidatorSet.verify_commit_trusting``, on the per-valset tabled ed25519
+path (the set's keys tabulated once, three CUDA kernels for that and the
+per-commit work, then the generic path's finish kernel), and on the
+generic batched path for providers without tables (three CUDA kernels;
+``ops/ed25519.py``, ``csrc/``). The package imports torch, numpy and the
+standard library, never jax and nothing of tendermint_tpu. Entry points
+run on the card unless the caller passes device="cpu".
 """
 
-from tendermint_tpu_torch.crypto.batch import BatchVerifier, TorchBatchVerifier
+from tendermint_tpu_torch.crypto.batch import BatchVerifier, TorchBatchVerifier, default_provider
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey, Ed25519PubKey
 from tendermint_tpu_torch.models.verifier import VerifierModel
 from tendermint_tpu_torch.ops.ed25519 import (
+    build_valset_tables,
     verify_stage_finish,
     verify_stage_prepare,
+    verify_stage_prepare_tabled,
     verify_stage_scan,
+    verify_stage_scan_tabled,
 )
 from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, PartSetHeader
 from tendermint_tpu_torch.types.validator import Validator
@@ -41,8 +47,12 @@ __all__ = [
     "Validator",
     "ValidatorSet",
     "VerifierModel",
+    "build_valset_tables",
+    "default_provider",
     "resolve_device",
     "verify_stage_finish",
     "verify_stage_prepare",
+    "verify_stage_prepare_tabled",
     "verify_stage_scan",
+    "verify_stage_scan_tabled",
 ]

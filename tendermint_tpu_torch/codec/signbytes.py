@@ -75,3 +75,11 @@ def canonical_sign_bytes(
         chain_id_commitment(chain_id),
     )
     return out + b"\x00" * (SIGN_BYTES_LEN - len(out))
+
+
+def splice_timestamps(rows, ts8):
+    """Write each row's 8 big-endian timestamp bytes at TIMESTAMP_OFFSET,
+    in place, and return the rows: the host form of what the tabled
+    prepare kernel reads from a template and a timestamp."""
+    rows[:, TIMESTAMP_OFFSET : TIMESTAMP_OFFSET + 8] = ts8
+    return rows

@@ -5,6 +5,8 @@ arrays: the caller extracts them from its own objects (see the port's
 tests) and these functions rebuild the port's ValidatorSet and Commit.
 
 Validator set: pubkeys (V, 32) uint8, powers (V,) int64.
+Valset tables: the JAX package's build_valset_tables output, tables
+(V, 16, 8, 60) int32 in 20 13-bit limbs a coordinate and a_ok (V,).
 Commit: height, round, the BlockID (hash, parts total, parts hash), and
 per row: flags (V,) uint8 (BlockIDFlag), timestamps (V,) int64 ns and
 signatures, a list of V bytes objects (any length, b"" when absent).
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
 from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_ABSENT, BlockID, Commit, CommitSig, PartSetHeader
@@ -31,6 +34,28 @@ def validator_set(pubkeys: np.ndarray, powers: np.ndarray) -> ValidatorSet:
     return ValidatorSet(
         [Validator(Ed25519PubKey(pk.tobytes()), int(p)) for pk, p in zip(pubkeys, powers)]
     )
+
+
+def valset_tables(tables: np.ndarray, a_ok: np.ndarray):
+    """The JAX package's per-valset tables -> the port's: (tables
+    (V, 16, 8, 3, 10) int32 in the port's limbs, a_ok (V,) bool), the
+    same field values. A JAX coordinate is sum(l_i 2^(13 i)) with limbs
+    in [0, 8800]; it is rebuilt as sum(l_i c_i) with c_i = 2^(13 i) mod p
+    in the port's limbs (each product below 2^40, a sum below 2^45), then
+    carried into the port's bounds."""
+    from tendermint_tpu_torch.ops import field
+
+    t = torch.from_numpy(np.asarray(tables, dtype=np.int64))
+    if t.dim() != 4 or t.shape[3] != 60:
+        raise ValueError(f"want JAX tables (V, SPLITS, 8, 60), got {tuple(t.shape)}")
+    v, splits, entries, _ = t.shape
+    limbs = t.reshape(v, splits, entries, 3, 20)
+    if limbs.min() < 0 or limbs.max() >= 1 << 14:
+        raise ValueError("JAX limbs outside [0, 2^14)")
+    powers = torch.tensor([field.to_limbs(1 << (13 * i)) for i in range(20)], dtype=torch.int64)  # (20, 10)
+    out = (limbs.unsqueeze(-1) * powers).sum(dim=-2)
+    out = field.carry(field.carry(field.carry(out)))
+    return out.to(torch.int32), torch.from_numpy(np.asarray(a_ok, dtype=bool).copy())
 
 
 def commit(

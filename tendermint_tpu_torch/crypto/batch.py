@@ -1,19 +1,23 @@
 """BatchVerifier: the seam where signature rows go to the device.
 
 The port's copy of the contract in the JAX package's ``crypto/batch.py``
-and its provider, ``TorchBatchVerifier``, which runs the three ed25519
-kernels through ``models.verifier.VerifierModel``.
+and its provider, ``TorchBatchVerifier``, which runs the ed25519 kernels
+through ``models.verifier.VerifierModel``: the generic path for
+``verify_batch``/``verify_commit_batch`` and the per-valset tabled path
+for ``verify_rows_cached{,_templated}``.
 
 Unlike the JAX package's TPU provider, this one never answers on the
 host: rows of ragged length (``msg_lens``) raise instead of being
 verified one by one, and there is no cold-bucket fallback (there are no
-buckets). The per-valset cached path (``verify_rows_cached*``) is not
-ported yet and returns None, the contract's "not available".
+buckets). ``verify_rows_cached*`` return None ("not available") only
+where the JAX provider's do for the same set: past the tabled path's
+size limit.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -59,7 +63,7 @@ def uniform_msgs(msgs: np.ndarray, msg_lens) -> np.ndarray:
 
 
 class TorchBatchVerifier(BatchVerifier):
-    """The three hand-written ed25519 kernels on the card (or their plain
+    """The hand-written ed25519 kernels on the card (or their plain
     versions with device="cpu")."""
 
     name = "torch"
@@ -74,3 +78,29 @@ class TorchBatchVerifier(BatchVerifier):
 
     def verify_commit_batch(self, pubkeys, msgs, sigs, powers, counted) -> Tuple[np.ndarray, int]:
         return self.model.verify_commit(pubkeys, msgs, sigs, powers, counted)
+
+    def verify_rows_cached(self, valset_key, all_pubkeys, row_idx, msgs, sigs) -> Optional[np.ndarray]:
+        return self.model.verify_rows_cached(valset_key, all_pubkeys, row_idx, msgs, sigs)
+
+    def verify_rows_cached_templated(
+        self, valset_key, all_pubkeys, row_idx, templates, tmpl_idx, ts8, sigs
+    ) -> Optional[np.ndarray]:
+        return self.model.verify_rows_cached_templated(
+            valset_key, all_pubkeys, row_idx, templates, tmpl_idx, ts8, sigs)
+
+
+_DEFAULT: Dict[str, TorchBatchVerifier] = {}
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_provider(device=None) -> TorchBatchVerifier:
+    """One shared TorchBatchVerifier per device (the JAX package's
+    get_default_provider), so that a set's tables outlive a call."""
+    from tendermint_tpu_torch.utils.device import resolve_device
+
+    key = str(resolve_device(device))
+    with _DEFAULT_LOCK:
+        v = _DEFAULT.get(key)
+        if v is None:
+            v = _DEFAULT[key] = TorchBatchVerifier(key)
+        return v

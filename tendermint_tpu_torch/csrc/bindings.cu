@@ -12,14 +12,32 @@ cudaError_t launch_prepare(const uint8_t*, const uint8_t*, const uint8_t*, int, 
 cudaError_t launch_scan(const int8_t*, const int8_t*, const int32_t*, int, int32_t*, cudaStream_t);
 cudaError_t launch_finish(const int32_t*, const uint8_t*, const uint8_t*, const uint8_t*, const int64_t*,
                           const uint8_t*, int, uint8_t*, unsigned long long*, cudaStream_t);
+cudaError_t set_constants_tabled(const void* host, size_t bytes);
+cudaError_t set_comb(const void* host, size_t bytes);
+cudaError_t launch_build_tables(const uint8_t*, int, int32_t*, uint8_t*, int32_t*, cudaStream_t);
+cudaError_t launch_prepare_tabled(const uint8_t*, const int32_t*, int, const uint8_t*, int, const uint8_t*, int,
+                                  const int32_t*, const uint8_t*, int, const uint8_t*, int, int8_t*, int8_t*,
+                                  uint8_t*, cudaStream_t);
+cudaError_t launch_scan_tabled(const int8_t*, const int8_t*, const int32_t*, const uint8_t*, const int32_t*, int,
+                               int, int32_t*, uint8_t*, cudaStream_t);
 }  // namespace tmk
 
 extern "C" {
 
+// Each kernel source holds its own __constant__ copy; both get the blob.
 int tm_set_constants(int device, const void* host, size_t bytes) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  return (int)tmk::set_constants(host, bytes);
+  e = tmk::set_constants(host, bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)tmk::set_constants_tabled(host, bytes);
+}
+
+// The 8-bit base comb of the tabled scan, (32, 128, 3, 10) int32.
+int tm_set_comb(int device, const void* host, size_t bytes) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)tmk::set_comb(host, bytes);
 }
 
 const char* tm_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -41,6 +59,27 @@ int tm_ed25519_finish(const void* pt, const void* sig, const void* a_ok, const v
   return (int)tmk::launch_finish((const int32_t*)pt, (const uint8_t*)sig, (const uint8_t*)a_ok,
                                 (const uint8_t*)s_ok, (const int64_t*)power, (const uint8_t*)counted, n,
                                 (uint8_t*)ok, (unsigned long long*)tally, (cudaStream_t)stream);
+}
+
+int tm_ed25519_build_tables(const void* pk, int v, void* tables, void* a_ok, void* scratch, void* stream) {
+  return (int)tmk::launch_build_tables((const uint8_t*)pk, v, (int32_t*)tables, (uint8_t*)a_ok, (int32_t*)scratch,
+                                      (cudaStream_t)stream);
+}
+
+int tm_ed25519_prepare_tabled(const void* pk_all, const void* idx, int v, const void* msg, int mlen,
+                              const void* tpl, int ntpl, const void* tmpl_idx, const void* ts8, int ts_off,
+                              const void* sig, int n, void* sd8, void* kd, void* s_ok, void* stream) {
+  return (int)tmk::launch_prepare_tabled((const uint8_t*)pk_all, (const int32_t*)idx, v, (const uint8_t*)msg,
+                                        mlen, (const uint8_t*)tpl, ntpl, (const int32_t*)tmpl_idx,
+                                        (const uint8_t*)ts8, ts_off, (const uint8_t*)sig, n, (int8_t*)sd8,
+                                        (int8_t*)kd, (uint8_t*)s_ok, (cudaStream_t)stream);
+}
+
+int tm_ed25519_scan_tabled(const void* sd8, const void* kd, const void* tables, const void* a_tab, const void* idx,
+                           int v, int n, void* out, void* a_ok, void* stream) {
+  return (int)tmk::launch_scan_tabled((const int8_t*)sd8, (const int8_t*)kd, (const int32_t*)tables,
+                                     (const uint8_t*)a_tab, (const int32_t*)idx, v, n, (int32_t*)out,
+                                     (uint8_t*)a_ok, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -41,28 +41,6 @@ __constant__ TmConstants c_k;
 
 constexpr int kBlock = 64;
 
-// Base-16 digits of a 32-byte scalar recoded to signed digits in [-8, 8)
-// (as curve.signed_digits; the carry out of digit 63 is dropped).
-__device__ __forceinline__ void signed_digits(int8_t* out, const uint8_t* b) {
-  int carry = 0;
-#pragma unroll
-  for (int i = 0; i < 64; i++) {
-    const int v = ((b[i >> 1] >> (4 * (i & 1))) & 15) + carry;
-    carry = v >= 8;
-    out[i] = (int8_t)(v - 16 * carry);
-  }
-}
-
-__device__ __forceinline__ void store_fe(int32_t* dst, const fe& f) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) dst[i] = f.v[i];
-}
-
-__device__ __forceinline__ void load_fe(fe& f, const int32_t* src) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) f.v[i] = src[i];
-}
-
 // Replaces verify_stage_prepare (ops/ed25519.py:56): sha512 (ops/sha512.py:176),
 // sc.reduce512 / sc.is_canonical (ops/sc.py:147, :165), curve.decompress
 // (ops/curve.py:156), curve.negate, nibble_digits / signed_digits (:391-416).
@@ -98,7 +76,7 @@ __global__ void __launch_bounds__(kBlock) ed25519_prepare(
   store_fe(dst + 30, A.T);
 
   uint8_t h[64], k[32];
-  tm_sha512_preimage(h, s, p, m, mlen, c_k.sha512_k);
+  tm_sha512_preimage(h, s, p, MatMsg{m}, mlen, c_k.sha512_k);
   sc_reduce(k, h);
   signed_digits(kd + 64 * (size_t)row, k);
 }

@@ -18,6 +18,9 @@
 // of ten below 2^61, so int64 columns never overflow; 19 * limb fits
 // int32. fe_mul leaves limbs within that bound, and fe_add / fe_sub /
 // fe_neg run one floor-carry pass, so sums never pile up across a formula.
+//
+// Two kernel sources include these headers; the functions that are not
+// forced inline are static, so each source keeps its own copy.
 #pragma once
 #include <stdint.h>
 
@@ -120,7 +123,7 @@ __device__ __forceinline__ void fe_nsq(fe& h, const fe& f, int n) {
 }
 
 // z^((p-5)/8) = z^(2^252 - 3), ref10's chain.
-__device__ void fe_pow22523(fe& out, const fe& z) {
+static __device__ void fe_pow22523(fe& out, const fe& z) {
   fe t0, t1, t2;
   fe_sq(t0, z);
   fe_nsq(t1, t0, 2);
@@ -147,7 +150,7 @@ __device__ void fe_pow22523(fe& out, const fe& z) {
 }
 
 // z^(p-2) = z^(2^255 - 21); 0 maps to 0.
-__device__ void fe_invert(fe& out, const fe& z) {
+static __device__ void fe_invert(fe& out, const fe& z) {
   fe t0, t1, t2, t3;
   fe_sq(t0, z);
   fe_nsq(t1, t0, 2);
@@ -243,6 +246,15 @@ __device__ __forceinline__ bool fe_eq(const fe& f, const fe& g) {
   return eq;
 }
 
+__device__ __forceinline__ bool fe_iszero(const fe& f) {
+  fe a;
+  fe_canonical(a, f);
+  bool z = true;
+#pragma unroll
+  for (int i = 0; i < 10; i++) z &= a.v[i] == 0;
+  return z;
+}
+
 __device__ __forceinline__ bool fe_isneg(const fe& f) {
   fe a;
   fe_canonical(a, f);
@@ -252,4 +264,14 @@ __device__ __forceinline__ bool fe_isneg(const fe& f) {
 __device__ __forceinline__ void fe_cmov(fe& h, const fe& g, bool b) {
 #pragma unroll
   for (int i = 0; i < 10; i++) h.v[i] = b ? g.v[i] : h.v[i];
+}
+
+__device__ __forceinline__ void store_fe(int32_t* dst, const fe& f) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) dst[i] = f.v[i];
+}
+
+__device__ __forceinline__ void load_fe(fe& f, const int32_t* src) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) f.v[i] = src[i];
 }

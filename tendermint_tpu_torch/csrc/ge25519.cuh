@@ -16,6 +16,13 @@ struct ge_cached {
   fe ypx, ymx, z2, t2d;
 };
 
+// ref10's ge_precomp, the JAX package's AffineCached: y+x, y-x, 2dxy of
+// an affine point (Z = 1), one multiplication cheaper to add than
+// ge_cached. The per-valset tables and the base comb hold these.
+struct ge_precomp {
+  fe ypx, ymx, t2d;
+};
+
 // Curve constants, uploaded once from the host (ops/_build.py) so that
 // every constant has one source: the pure-Python oracle.
 struct TmConstants {
@@ -103,6 +110,25 @@ __device__ __forceinline__ void ge_add_cached(ge_p3& r, const ge_p3& p, const ge
   fe_mul(r.Z, f, g);
 }
 
+// p + q with q affine-cached (ref10 ge_madd), as curve.madd
+__device__ __forceinline__ void ge_madd(ge_p3& r, const ge_p3& p, const ge_precomp& q, bool want_t) {
+  fe a, b, c, d, e, f, g, h;
+  fe_sub(a, p.Y, p.X);
+  fe_mul(a, a, q.ymx);
+  fe_add(b, p.Y, p.X);
+  fe_mul(b, b, q.ypx);
+  fe_mul(c, p.T, q.t2d);
+  fe_add(d, p.Z, p.Z);
+  fe_sub(e, b, a);
+  fe_sub(f, d, c);
+  fe_add(g, d, c);
+  fe_add(h, b, a);
+  if (want_t) fe_mul(r.T, e, h); else fe_set_small(r.T, 0);
+  fe_mul(r.X, e, f);
+  fe_mul(r.Y, g, h);
+  fe_mul(r.Z, f, g);
+}
+
 // Signed-window select: |digit| picks entry |digit| - 1, 0 gives the
 // cached identity (1, 1, 2, 0), a negative digit swaps Y+X with Y-X and
 // negates 2dT (as curve._select).
@@ -111,6 +137,22 @@ __device__ __forceinline__ void ge_select_fix(ge_cached& c, int digit) {
     fe_set_small(c.ypx, 1);
     fe_set_small(c.ymx, 1);
     fe_set_small(c.z2, 2);
+    fe_set_small(c.t2d, 0);
+  } else if (digit < 0) {
+    const fe t = c.ypx;
+    c.ypx = c.ymx;
+    c.ymx = t;
+    fe_neg(c.t2d, c.t2d);
+  }
+}
+
+// The affine-cached form of ge_select_fix: digit 0 gives the affine
+// identity (1, 1, 0), a negative digit swaps y+x with y-x and negates
+// 2dxy (as curve._select_affine).
+__device__ __forceinline__ void ge_precomp_fix(ge_precomp& c, int digit) {
+  if (digit == 0) {
+    fe_set_small(c.ypx, 1);
+    fe_set_small(c.ymx, 1);
     fe_set_small(c.t2d, 0);
   } else if (digit < 0) {
     const fe t = c.ypx;

@@ -30,7 +30,7 @@ __device__ __forceinline__ void sc_carry_floor(int64_t* s, int i) {
 }
 
 // out = in (64 bytes, little-endian) mod L, 32 bytes
-__device__ void sc_reduce(uint8_t out[32], const uint8_t in[64]) {
+static __device__ void sc_reduce(uint8_t out[32], const uint8_t in[64]) {
   int64_t s[24];
 #pragma unroll
   for (int i = 0; i < 24; i++) {
@@ -89,4 +89,29 @@ __device__ __forceinline__ bool sc_is_canonical(const uint8_t* s) {
     eq &= s[i] == Lb[i];
   }
   return lt;
+}
+
+// Base-16 digits of a 32-byte scalar recoded to signed digits in [-8, 8)
+// (as curve.signed_digits; the carry out of digit 63 is dropped).
+__device__ __forceinline__ void signed_digits(int8_t* out, const uint8_t* b) {
+  int carry = 0;
+#pragma unroll
+  for (int i = 0; i < 64; i++) {
+    const int v = ((b[i >> 1] >> (4 * (i & 1))) & 15) + carry;
+    carry = v >= 8;
+    out[i] = (int8_t)(v - 16 * carry);
+  }
+}
+
+// The bytes of a 32-byte scalar recoded to signed base-256 digits in
+// [-128, 128) (as curve.signed_digits_base256): a byte >= 128 becomes
+// byte - 256 with a carry up; scalars below 2^253 leave no final carry.
+__device__ __forceinline__ void signed_digits256(int8_t* out, const uint8_t* b) {
+  int carry = 0;
+#pragma unroll
+  for (int i = 0; i < 32; i++) {
+    const int v = b[i] + carry;
+    carry = v >= 128;
+    out[i] = (int8_t)(v - 256 * carry);
+  }
 }

@@ -6,19 +6,41 @@
 // 32-bit halves itself). The preimage is never materialised: byte i of
 // the padded message is read straight from the signature, the key or the
 // message row. The round constants come from the host (TmConstants).
+//
+// The message is read through an accessor, so a row can also be a
+// template with a per-row timestamp spliced in (TplMsg): the tabled
+// prepare never materialises the (N, 160) sign-bytes matrix.
 #pragma once
 #include <stdint.h>
 
 __device__ __forceinline__ uint64_t tm_rotr64(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
 
+// A message row stored as it is.
+struct MatMsg {
+  const uint8_t* m;
+  __device__ __forceinline__ uint32_t operator()(int i) const { return m[i]; }
+};
+
+// A message row that is a template with 8 timestamp bytes spliced in at
+// `ts_off` (the canonical sign-bytes layout, codec/signbytes.py).
+struct TplMsg {
+  const uint8_t* tpl;
+  const uint8_t* ts8;
+  int ts_off;
+  __device__ __forceinline__ uint32_t operator()(int i) const {
+    return (i >= ts_off && i < ts_off + 8) ? ts8[i - ts_off] : tpl[i];
+  }
+};
+
 // Byte `i` of pad(R || A || M), with M `mlen` bytes and `total` the
 // padded length.
+template <class Msg>
 __device__ __forceinline__ uint32_t tm_preimage_byte(int i, const uint8_t* sig, const uint8_t* pk,
-                                                      const uint8_t* msg, int mlen, int total) {
+                                                      const Msg& msg, int mlen, int total) {
   const int len = 64 + mlen;
   if (i < 32) return sig[i];
   if (i < 64) return pk[i - 32];
-  if (i < len) return msg[i - 64];
+  if (i < len) return msg(i - 64);
   if (i == len) return 0x80;
   if (i >= total - 8) {  // low 64 bits of the 128-bit big-endian bit length
     const uint64_t bits = (uint64_t)len * 8;
@@ -27,8 +49,9 @@ __device__ __forceinline__ uint32_t tm_preimage_byte(int i, const uint8_t* sig, 
   return 0;
 }
 
+template <class Msg>
 __device__ void tm_sha512_preimage(uint8_t out[64], const uint8_t* sig, const uint8_t* pk,
-                                   const uint8_t* msg, int mlen, const uint64_t* K) {
+                                   const Msg& msg, int mlen, const uint64_t* K) {
   const uint64_t H0[8] = {0x6A09E667F3BCC908ull, 0xBB67AE8584CAA73Bull, 0x3C6EF372FE94F82Bull,
                           0xA54FF53A5F1D36F1ull, 0x510E527FADE682D1ull, 0x9B05688C2B3E6C1Full,
                           0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull};

@@ -11,7 +11,9 @@ unchanged one is loaded as it is.
 
 After loading, the curve constants and the [1..8]B table (from the
 pure-Python oracle) and SHA-512's round constants are copied into the
-kernels' ``__constant__`` memory, once per device.
+kernels' ``__constant__`` memory, and the tabled scan's 8-bit base comb
+(491,520 B, too large for ``__constant__``) into a ``__device__`` array,
+once per device.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("ed25519_kernels.cu", "bindings.cu")
+SOURCES = ("ed25519_kernels.cu", "ed25519_tabled.cu", "bindings.cu")
 HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "sha512.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -109,7 +111,13 @@ def _declare(lib) -> None:
     lib.tm_ed25519_prepare.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp, vp, vp, vp]
     lib.tm_ed25519_scan.argtypes = [vp, vp, vp, i32, vp, vp]
     lib.tm_ed25519_finish.argtypes = [vp, vp, vp, vp, vp, vp, i32, vp, vp, vp]
-    for fn in (lib.tm_set_constants, lib.tm_ed25519_prepare, lib.tm_ed25519_scan, lib.tm_ed25519_finish):
+    lib.tm_set_comb.argtypes = [i32, vp, sz]
+    lib.tm_ed25519_build_tables.argtypes = [vp, i32, vp, vp, vp, vp]
+    lib.tm_ed25519_prepare_tabled.argtypes = [vp, vp, i32, vp, i32, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, vp]
+    lib.tm_ed25519_scan_tabled.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp, vp, vp]
+    for fn in (lib.tm_set_constants, lib.tm_ed25519_prepare, lib.tm_ed25519_scan, lib.tm_ed25519_finish,
+               lib.tm_set_comb, lib.tm_ed25519_build_tables, lib.tm_ed25519_prepare_tabled,
+               lib.tm_ed25519_scan_tabled):
         fn.restype = i32
 
 
@@ -124,6 +132,15 @@ def constants_blob() -> bytes:
         for c in row:
             limbs += field.to_limbs(c)
     return struct.pack(f"<{len(limbs)}i", *limbs) + struct.pack("<80Q", *sha512.K)
+
+
+def comb_blob() -> bytes:
+    """The tabled scan's base comb (csrc/ed25519_tabled.cu c_comb):
+    curve.base_comb256_limbs() as little-endian int32."""
+    from tendermint_tpu_torch.ops import curve
+
+    flat = [x for pos in curve.base_comb256_limbs() for ent in pos for c in ent for x in c]
+    return struct.pack(f"<{len(flat)}i", *flat)
 
 
 def check(lib, code: int, what: str) -> None:
@@ -142,5 +159,7 @@ def library(device_index: int):
         if device_index not in _const_devices:
             blob = constants_blob()
             check(_lib, _lib.tm_set_constants(device_index, blob, len(blob)), "constants upload")
+            blob = comb_blob()
+            check(_lib, _lib.tm_set_comb(device_index, blob, len(blob)), "base comb upload")
             _const_devices.add(device_index)
         return _lib

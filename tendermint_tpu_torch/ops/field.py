@@ -168,6 +168,27 @@ def invert(z: torch.Tensor) -> torch.Tensor:
     return mul(t1, t0)  # 2^255 - 21
 
 
+def invert_rows(z: torch.Tensor) -> torch.Tensor:
+    """(V, E, 10) -> the inverse of every element, each row's E
+    inverted together by Montgomery's trick (one inversion a row, three
+    multiplications an element), as the table-build kernel does. An
+    element that is 0 counts as 1 in the products and its inverse is 0,
+    so it cannot spoil the rest of its row."""
+    zero = is_zero(z)
+    one = const(1, z.shape[:1], z.device)
+    zs = select(zero, const(1, z.shape[:2], z.device), z)
+    pre, run = [], one
+    for e in range(z.shape[1]):
+        pre.append(run)
+        run = mul(run, zs[:, e])
+    inv = invert(run)
+    out = [None] * z.shape[1]
+    for e in range(z.shape[1] - 1, -1, -1):
+        out[e] = mul(inv, pre[e])
+        inv = mul(inv, zs[:, e])
+    return select(zero, torch.zeros_like(z), torch.stack(out, dim=1))
+
+
 def canonical(f: torch.Tensor) -> torch.Tensor:
     """The unique representative in [0, p), each limb in [0, 2^width).
 
@@ -231,6 +252,10 @@ def from_bytes(b: torch.Tensor) -> torch.Tensor:
 
 def eq(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (canonical(f) == canonical(g)).all(dim=-1)
+
+
+def is_zero(f: torch.Tensor) -> torch.Tensor:
+    return (canonical(f) == 0).all(dim=-1)
 
 
 def is_negative(f: torch.Tensor) -> torch.Tensor:

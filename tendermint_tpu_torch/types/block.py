@@ -1,7 +1,8 @@
 """PartSetHeader, BlockID, CommitSig and Commit: the port's copy of the
 parts of the JAX package's ``types/block.py`` that commit verification
 reads (reference types/block.go: Commit :572, CommitSig :468,
-Commit.VoteSignBytes :637, BlockID :957 region)."""
+Commit.VoteSignBytes :637, BlockID :957 region), with the templated
+sign-bytes (``Commit.sign_bytes_parts``) that the tabled path reads."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import numpy as np
 
 from tendermint_tpu_torch.codec import signbytes
 from tendermint_tpu_torch.codec.binary import Writer
-from tendermint_tpu_torch.codec.signbytes import PRECOMMIT_TYPE
+from tendermint_tpu_torch.codec.signbytes import PRECOMMIT_TYPE, splice_timestamps
 
 # Widest signature of any registered key scheme in the JAX package (BLS
 # G2 = 96 bytes); bounds CommitSig.validate_basic exactly as there.
@@ -110,6 +111,8 @@ class Commit:
     block_id: BlockID
     signatures: List[CommitSig]
 
+    _parts_cache: Optional[tuple] = field(default=None, init=False, repr=False, compare=False)
+
     def vote_sign_bytes(self, chain_id: str, idx: int) -> bytes:
         """Canonical sign-bytes of signature `idx` (160 bytes)."""
         cs = self.signatures[idx]
@@ -125,10 +128,20 @@ class Commit:
             chain_id=chain_id,
         )
 
-    def sign_bytes_matrix(self, chain_id: str, rows) -> np.ndarray:
-        """(len(rows), 160) uint8 sign-bytes of the signatures `rows`, built
-        from two templates (for the block, nil) and the rows' timestamps:
-        within one commit the sign-bytes differ only there."""
+    def sign_bytes_parts(self, chain_id: str):
+        """The canonical sign-bytes of every signature as templates:
+        (templates (2, 160) u8, row 0 for the block and row 1 nil;
+        tmpl_idx (N,) int32; ts8 (N, 8) u8 big-endian timestamps). Row r
+        is templates[tmpl_idx[r]] with ts8[r] at the timestamp offset:
+        within one commit the sign-bytes differ only there. Absent rows
+        get template 1; callers drop them.
+
+        Memoised per chain id: a commit is verified several times (each
+        validation pass of a height), and its signatures are not changed
+        after it is assembled."""
+        cached = self._parts_cache
+        if cached is not None and cached[0] == chain_id:
+            return cached[1]
         template = np.frombuffer(
             signbytes.canonical_sign_bytes(
                 msg_type=PRECOMMIT_TYPE,
@@ -144,12 +157,19 @@ class Commit:
         )
         templates = np.stack([template, template])
         templates[1, signbytes.BLOCK_ID_OFFSET : signbytes.BLOCK_ID_END] = 0
-        sigs = [self.signatures[i] for i in rows]
-        mat = templates[np.asarray([0 if cs.for_block() else 1 for cs in sigs], dtype=np.int64)]
-        ts = np.asarray([cs.timestamp_ns for cs in sigs], dtype=">i8").view(np.uint8)
-        o = signbytes.TIMESTAMP_OFFSET
-        mat[:, o : o + 8] = ts.reshape(len(sigs), 8)
-        return mat
+        n = len(self.signatures)
+        ts8 = np.asarray([cs.timestamp_ns for cs in self.signatures], dtype=">i8").view(np.uint8).reshape(n, 8)
+        tmpl_idx = np.asarray([cs.block_id_flag != BLOCK_ID_FLAG_COMMIT for cs in self.signatures], dtype=np.int32)
+        out = (templates, tmpl_idx, ts8)
+        self._parts_cache = (chain_id, out)
+        return out
+
+    def sign_bytes_matrix(self, chain_id: str, rows) -> np.ndarray:
+        """(len(rows), 160) uint8 sign-bytes of the signatures `rows`,
+        materialised from sign_bytes_parts."""
+        templates, tmpl_idx, ts8 = self.sign_bytes_parts(chain_id)
+        rows = np.asarray(rows, dtype=np.int64)
+        return splice_timestamps(templates[tmpl_idx[rows]], ts8[rows])
 
     def validate_basic(self) -> Optional[str]:
         if self.height < 0:

@@ -2,26 +2,33 @@
 
 The port's copy of the JAX package's ``types/validator_set.py``:
 construction (sorted by address, proposer priorities as the reference
-initialises them), ``total_voting_power`` and ``verify_commit``.
+initialises them), ``total_voting_power``, ``get_by_address``,
+``verify_commit`` and the light client's ``verify_commit_trusting``.
 
-``verify_commit`` does not verify signature by signature as the reference
-does (types/validator_set.go:641-668): it packs every present signature
-into rectangular arrays, makes ONE ``BatchVerifier.verify_commit_batch``
-call (the three ed25519 kernels with the voting-power tally fused into
-the last), and replays the reference's sequential early-return over the
-returned verdicts and tally, so it accepts exactly what the serial loop
-accepts.
-Not here yet: the signature cache, aggregated (BLS) commits, and the
-per-valset tabled path.
+Neither verifies signature by signature as the reference does
+(types/validator_set.go:641-668, :754): they pack every present
+signature into rectangular arrays, make one device call, and replay the
+reference's sequential early-return over the verdicts, so they accept
+exactly what the serial loop accepts. The device call is the provider's
+per-valset tabled path (``verify_rows_cached_templated``: the set's
+tables, built once, and the commit's sign-bytes as two templates and
+per-row timestamps) and, where the provider has none, the generic path
+(``verify_commit_batch``, with the voting-power tally fused into the
+last kernel). On the tabled path the tally is summed on the host.
+Not here yet: the signature cache, aggregated (BLS) commits and key
+types other than ed25519.
 """
 
 from __future__ import annotations
 
+import hashlib
+from fractions import Fraction
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tendermint_tpu_torch.crypto.batch import BatchVerifier, TorchBatchVerifier
+from tendermint_tpu_torch.codec.signbytes import splice_timestamps
+from tendermint_tpu_torch.crypto.batch import BatchVerifier, default_provider
 from tendermint_tpu_torch.types.block import MAX_SIGNATURE_SIZE, BlockID, Commit
 from tendermint_tpu_torch.types.validator import Validator
 
@@ -59,14 +66,22 @@ class ValidatorSet:
         if len(set(addrs)) != len(addrs):
             raise ValueError("duplicate validator address")
         self.validators: List[Validator] = vals
+        self._addr_index = {a: i for i, a in enumerate(addrs)}
         self.proposer: Optional[Validator] = None
         self._total_voting_power = self._sum_voting_power()
         self._arrays: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._dev_key: Optional[bytes] = None
         if vals:
             self._increment_proposer_priority()
 
     def total_voting_power(self) -> int:
         return self._total_voting_power
+
+    def get_by_address(self, addr: bytes) -> Tuple[int, Optional[Validator]]:
+        i = self._addr_index.get(addr)
+        if i is None:
+            return -1, None
+        return i, self.validators[i]
 
     def _sum_voting_power(self) -> int:
         total = 0
@@ -109,31 +124,70 @@ class ValidatorSet:
             self._arrays = (pk.reshape(len(self.validators), 32), powers)
         return self._arrays
 
-    def _commit_batch_arrays(self, chain_id: str, commit: Commit):
-        """The present signatures as rectangular arrays: (idxs, pubkeys
-        (N,32), msgs (N,160), sigs (N,64), powers (N,), counted (N,),
-        sig_ok (N,)). Row r is signature idxs[r] of validator idxs[r].
+    def batch_cache(self) -> Tuple[bytes, np.ndarray]:
+        """(key, pubkeys (V, 32)) for providers with per-valset tables:
+        the key is the SHA-256 of the pubkey matrix, which is exactly
+        what the tables depend on."""
+        pk, _ = self._device_arrays()
+        if self._dev_key is None:
+            self._dev_key = hashlib.sha256(pk.tobytes()).digest()
+        return self._dev_key, pk
+
+    def _commit_batch_arrays(self, chain_id: str, commit: Commit, by_address: bool = False):
+        """The present signatures as rectangular arrays: (idxs, vals_idx
+        (N,), sigs (N,64), powers (N,), counted (N,), sig_ok (N,), tpl).
+        Row r is signature idxs[r] of validator vals_idx[r]: with
+        `by_address=False` signature i is validator i's (a commit of this
+        set); with `by_address=True` each signer is looked up by address
+        and unknown ones are skipped (a commit of another set). tpl is
+        (templates (2,160), tmpl_idx (N,), ts8 (N,8)), the rows' templated
+        sign-bytes (``Commit.sign_bytes_parts``).
 
         sig_ok is False for a signature that is not 64 bytes long: the
         reference's serial verify rejects those, so they must not be
         padded or cut into the batch where a prefix could verify."""
         idxs: List[int] = []
+        vals: List[int] = []
+        parts: List[bytes] = []
+        sig_ok: List[bool] = []
+        counted: List[bool] = []
         for i, cs in enumerate(commit.signatures):
             if cs.absent_():
                 continue
-            if len(cs.signature) > MAX_SIGNATURE_SIZE:
-                raise ErrInvalidCommit(f"signature #{i} too big ({len(cs.signature)})")
+            sig = cs.signature
+            if len(sig) > MAX_SIGNATURE_SIZE:
+                raise ErrInvalidCommit(f"signature #{i} too big ({len(sig)})")
+            if by_address:
+                vi = self._addr_index.get(cs.validator_address)
+                if vi is None:
+                    continue
+            else:
+                vi = i
             idxs.append(i)
-        all_pk, all_powers = self._device_arrays()
+            vals.append(vi)
+            ok = len(sig) == 64
+            sig_ok.append(ok)
+            parts.append(sig if ok else sig[:64].ljust(64, b"\x00"))
+            counted.append(cs.for_block())
+        n = len(idxs)
+        _, all_powers = self._device_arrays()
+        vals_idx = np.asarray(vals, dtype=np.int64)
         rows = np.asarray(idxs, dtype=np.int64)
-        sig_ok = np.asarray([len(commit.signatures[i].signature) == 64 for i in idxs], dtype=bool)
-        sigs = np.frombuffer(
-            b"".join(commit.signatures[i].signature[:64].ljust(64, b"\x00") for i in idxs),
-            dtype=np.uint8,
-        ).reshape(len(idxs), 64)
-        counted = np.asarray([commit.signatures[i].for_block() for i in idxs], dtype=bool)
-        msgs = commit.sign_bytes_matrix(chain_id, idxs)
-        return idxs, all_pk[rows], msgs, sigs, all_powers[rows], counted, sig_ok
+        templates, tmpl_idx, ts8 = commit.sign_bytes_parts(chain_id)
+        sigs = np.frombuffer(b"".join(parts), dtype=np.uint8).reshape(n, 64)
+        return (
+            idxs, vals_idx, sigs, all_powers[vals_idx], np.asarray(counted, dtype=bool),
+            np.asarray(sig_ok, dtype=bool), (templates, tmpl_idx[rows], ts8[rows]),
+        )
+
+    def _rows_cached(self, provider, vals_idx, sigs, tpl) -> Optional[np.ndarray]:
+        """The provider's per-valset tabled path, with the rows'
+        templated sign-bytes (12 message bytes a row go to the device
+        instead of 160); None: use the generic path."""
+        key, all_pk = self.batch_cache()
+        out = provider.verify_rows_cached_templated(
+            key, all_pk, np.asarray(vals_idx, dtype=np.int32), tpl[0], tpl[1], tpl[2], sigs)
+        return None if out is None else np.asarray(out, dtype=bool)
 
     def _verify_commit_basic(self, commit: Commit, height: int, block_id: BlockID) -> None:
         """Structural validity, height and BlockID (reference
@@ -159,18 +213,26 @@ class ValidatorSet:
 
         Reference semantics (types/validator_set.go:629-668): signatures in
         order, fail on the first invalid one, succeed as soon as the tallied
-        for-block power exceeds 2/3 of the total. `provider` defaults to a
-        TorchBatchVerifier on `device` (the card unless "cpu" is asked for).
+        for-block power exceeds 2/3 of the total. `provider` defaults to the
+        shared TorchBatchVerifier on `device` (the card unless "cpu" is
+        asked for).
         """
         if len(self.validators) != len(commit.signatures):
             raise ErrInvalidCommit(
                 f"wrong set size: {len(self.validators)} vs {len(commit.signatures)}"
             )
         self._verify_commit_basic(commit, height, block_id)
-        idxs, pk, msgs, sigs, powers, counted, sig_ok = self._commit_batch_arrays(chain_id, commit)
-        v = provider if provider is not None else TorchBatchVerifier(device)
-        ok, talled = v.verify_commit_batch(pk, msgs, sigs, powers, counted & sig_ok)
-        ok = np.asarray(ok, dtype=bool) & sig_ok
+        idxs, vals_idx, sigs, powers, counted, sig_ok, tpl = self._commit_batch_arrays(chain_id, commit)
+        v = provider if provider is not None else default_provider(device)
+        ok = self._rows_cached(v, vals_idx, sigs, tpl) if idxs else np.zeros(0, dtype=bool)
+        if ok is not None:
+            ok = ok & sig_ok
+            talled = int(powers[ok & counted].sum())
+        else:
+            pk = self._device_arrays()[0][vals_idx]
+            msgs = splice_timestamps(tpl[0][tpl[1]], tpl[2])
+            ok, talled = v.verify_commit_batch(pk, msgs, sigs, powers, counted & sig_ok)
+            ok = np.asarray(ok, dtype=bool) & sig_ok
         self._replay_commit_full(commit, ok, idxs, powers, counted, talled)
 
     def _replay_commit_full(self, commit: Commit, ok, idxs, powers, counted, talled: int) -> None:
@@ -179,8 +241,8 @@ class ValidatorSet:
         closed form. The loop returns as soon as the power tallied before
         a row exceeds 2/3, so it reaches the first bad row only if the
         tally before that row is still <= 2/3. With no bad row it ends
-        with every counted row's power tallied: `talled`, the device's sum
-        over the rows that are ok and counted."""
+        with every counted row's power tallied: `talled`, the sum over
+        the rows that are ok and counted."""
         needed = self.total_voting_power() * 2 // 3
         bad = np.flatnonzero(~ok)
         if bad.size:
@@ -191,6 +253,75 @@ class ValidatorSet:
             raise ErrInvalidCommitSignature(
                 f"wrong signature #{i} ({commit.signatures[i].validator_address.hex()})"
             )
+        if talled > needed:
+            return
+        raise ErrNotEnoughVotingPower(f"have {talled}, need > {needed}")
+
+    @staticmethod
+    def _validate_trust_level(trust_level) -> None:
+        """Trust level must be in [1/3, 1] (reference ValidateTrustLevel)."""
+        if (
+            trust_level is None
+            or trust_level.denominator == 0
+            or trust_level.numerator * 3 < trust_level.denominator
+            or trust_level.numerator > trust_level.denominator
+        ):
+            raise ValueError(f"trust level must be within [1/3, 1], got {trust_level}")
+
+    def verify_commit_trusting(
+        self,
+        chain_id: str,
+        block_id: BlockID,
+        height: int,
+        commit: Commit,
+        trust_level: Fraction,
+        provider: Optional[BatchVerifier] = None,
+        device=None,
+    ) -> None:
+        """Verify that `trust_level` (e.g. 1/3) of THIS set signed the
+        commit, looking signers up by address: the commit may come from
+        another set (reference VerifyCommitTrusting,
+        types/validator_set.go:754, with verifyCommitBasic; the light
+        client's check). The rows read this set's tables through their
+        validator index, which here is a subset of the set and may repeat
+        a validator. A repeated validator is rejected in the replay,
+        where the reference's loop meets it: one after quorum does not
+        reject."""
+        self._validate_trust_level(trust_level)
+        self._verify_commit_basic(commit, height, block_id)
+        idxs, vals_idx, sigs, powers, counted, sig_ok, tpl = self._commit_batch_arrays(
+            chain_id, commit, by_address=True)
+        v = provider if provider is not None else default_provider(device)
+        ok = self._rows_cached(v, vals_idx, sigs, tpl) if idxs else np.zeros(0, dtype=bool)
+        if ok is None:
+            pk = self._device_arrays()[0][vals_idx]
+            ok = np.asarray(v.verify_batch(pk, splice_timestamps(tpl[0][tpl[1]], tpl[2]), sigs), dtype=bool)
+        self._replay_commit_trusting(ok & sig_ok, idxs, vals_idx, powers, counted, trust_level)
+
+    def _replay_commit_trusting(self, ok, idxs, vals_idx, powers, counted, trust_level: Fraction) -> None:
+        """The reference's trusting loop (types/validator_set.go:754
+        region) in closed form. At each row the loop first returns if
+        the power tallied so far exceeds the trust level's share, then
+        rejects a validator it has seen before, then a bad signature,
+        then tallies the row. Every row before the first rejected one
+        was tallied, so the loop returns early iff the tally before some
+        row at or before that one exceeds the share."""
+        needed = self.total_voting_power() * trust_level.numerator // trust_level.denominator
+        vals = np.asarray(vals_idx, dtype=np.int64)
+        n = vals.shape[0]
+        contrib = np.where(np.asarray(counted, dtype=bool), np.asarray(powers, dtype=np.int64), 0)
+        before = np.cumsum(contrib) - contrib
+        first = np.zeros(n, dtype=bool)
+        first[np.unique(vals, return_index=True)[1]] = True
+        bad = np.flatnonzero(~first | ~np.asarray(ok, dtype=bool))
+        r_bad = int(bad[0]) if bad.size else n
+        if np.any(before[: r_bad + 1] > needed):
+            return
+        if r_bad < n:
+            if not first[r_bad]:
+                raise ErrInvalidCommit(f"double vote from validator index {int(vals[r_bad])}")
+            raise ErrInvalidCommitSignature(f"wrong signature #{idxs[r_bad]}")
+        talled = int(contrib.sum())
         if talled > needed:
             return
         raise ErrNotEnoughVotingPower(f"have {talled}, need > {needed}")
