@@ -5,8 +5,9 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
 
 Phases (any failure raises and ends the run with a nonzero exit):
 
-1. Print the card's name and power limit (nvidia-smi), build the six
-   ed25519 kernels from tendermint_tpu_torch/csrc (nvcc, sm_90a).
+1. Print the card's name and power limit (nvidia-smi), build the eight
+   kernels (six ed25519, two SHA-256) from tendermint_tpu_torch/csrc
+   (nvcc, sm_90a).
 2. Hold each kernel against its plain PyTorch version, on the card, on
    one 1,024-row batch of honest and adversarial rows (s + L, flipped R,
    s and message bits, an undecodable key, a non-canonical A.y, small-order
@@ -41,15 +42,45 @@ Phases (any failure raises and ends the run with a nonzero exit):
    the 9,510 present rows read through their validator index, templated
    sign-bytes) and on the 1,024-row adversarial batch with its keys as
    the set (row r is validator r, a message matrix). Timing as in 4.
+6. The merkle kernels (sha256_leaf_blocks, merkle_inner_level) against
+   their plain versions, exactly at the (8, N) state seams, with every
+   level on the card: on the 10,000 validators' leaves, on the
+   10,000-signature commit's ragged leaves (95 and 11 bytes), and on an
+   adversarial set (m in 2, 3, 5, 127-129, 1023-1025 leaves with the
+   empty leaf, 54- and 55-byte leaves at the one/two-block edge and a
+   40-block leaf; sha256 of 55- and 56-byte messages). Roots and every
+   proof's aunts against a hashlib recursion of simple_tree.go.
+   ValidatorSet.hash() and Commit.hash() at 10,000: the counts set to 0
+   just before and read just after (one leaf launch, seven inner ones:
+   widths 5,000 down to 79), CUDA events p50/p99 of 30 calls on fresh
+   objects, the host clock split, and hashlib alone beside it.
+7. The light client at 10,000 validators: a trusted header h1, h2
+   adjacent under the set S of phases 3-5, h4 two heights on under S'
+   (S with three validators replaced), both signed here. verify(h1 ->
+   h2) must move the merkle and the tabled ed25519 kernels and not the
+   generic prepare/scan; verify_chain(h1, [h2, h4]), whose commits span
+   S and S', the generic ones in one call. The negative cases: a power
+   changed in the untrusted set (ErrInvalidHeader), a skip link from a
+   set of fresh keys (ErrNewValSetCantBeTrusted), a bad signature before
+   quorum in h2 (ErrInvalidCommitSignature out of verify_chain), each
+   with the JAX package's class and message. Timing: p50 of verify
+   (adjacent) and of verify_chain over warm runs on fresh objects, and
+   the validator-set hash's share of an adjacent step.
 
 Before the last line it prints one JSON object with a row per kernel
 (launches, max_abs_err, ms, plain_ms, bound_ms, ...), then the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+nvidia-smi line. In every row `ms` is the median time a call of
+back-to-back calls, the wrapper's host cost of a launch included, and
+`ms_device_only` the device alone (a sleep kernel holds the stream
+while the host enqueues the calls); the last line is {"ok": true, "device": {...}}. Every
+launch count in a row is read from a run of its path, the eight
+kernels' alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -76,12 +107,30 @@ OPS_PER_FIELD_MUL = 2 * 100  # 100 limb products, each a 32x32->64 multiply-add
 # at the multiply-add's rate (64 a clock per SM): counted as 2
 # operations each, like a multiply-add.
 OPS_PER_SHA512_BLOCK = 2 * 2 * (80 * 23 + 64 * 13)
+# SHA-256 on its native 32-bit words, counted in the instructions sm_90a
+# needs for it, each at the same table's 32-bit integer rate (64 a clock
+# per SM for the 3-input LOP3 and IADD3 and the funnel shift SHF alike)
+# and counted as 2 operations, like a multiply-add. A round: Sigma1 and
+# Sigma0 three rotates (SHF) and one LOP3 each, Ch and Maj one LOP3
+# each, and its seven additions as four IADD3 (e = d + T1 and a = T1 +
+# Sigma0 + Maj share h + Sigma1 + Ch): 14. A schedule word: sigma0 and
+# sigma1 two rotates, a shift and a LOP3 each, its three additions two
+# IADD3: 10. The feed-forward: 8 additions. Constant message words fold
+# (sha256_block_instructions), and the first round of a hash, whose
+# state is the constant IV, folds to two additions. The byte swaps and
+# one-byte shifts that assemble the blocks are not counted.
+SHA256_ROUND_INSTR, SHA256_SCHEDULE_WORD_INSTR, SHA256_FEED_FORWARD_INSTR = 14, 10, 8
+SHA256_FIRST_ROUND_FOLD = 12
 
 N_BATCH = 1024
 N_VALS = 10_000
 CHAIN = "smoke-chain"
 HEIGHT = 12
 SEED = 20261017
+MERKLE_M = (2, 3, 5, 127, 128, 129, 1023, 1024, 1025)
+LIGHT_T0 = 1_760_000_100 * 10**9
+LIGHT_NOW = LIGHT_T0 + 60 * 10**9
+TRUSTING_PERIOD = 14 * 24 * 3600 * 10**9
 
 
 def require(cond, what: str) -> None:
@@ -112,6 +161,40 @@ def median_ms(fn, reps: int, repeats: int) -> float:
     fn()
     torch.cuda.synchronize()
     return float(np.median([cuda_ms(fn, reps) for _ in range(repeats)]))
+
+
+SLEEP_CYCLES = 50_000_000  # about 25 ms of a sleep kernel at the H100's clock
+
+
+def device_ms(fn, reps: int, repeats: int = 5) -> float:
+    """Median milliseconds per call of `fn` on the device alone. A sleep
+    kernel first holds the stream while the host enqueues all `reps`
+    calls behind it, so the events time the kernels back to back, not
+    the host's cost of a launch (a wrapper's checks, allocation and the
+    ctypes call: tens of microseconds, more than a small kernel runs).
+    Fails if the host did not finish enqueueing inside the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    end.record()
+    torch.cuda.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    out = []
+    for _ in range(repeats):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_ms = 1e3 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        require(enqueue_ms < 0.8 * sleep_ms, f"host enqueued {reps} calls in {enqueue_ms:.2f} ms, inside the "
+                                             f"{sleep_ms:.2f} ms sleep")
+        out.append(start.elapsed_time(end) / reps)
+    return float(np.median(out))
 
 
 def field_muls_per_row(stage) -> int:
@@ -306,17 +389,33 @@ def second_set(vs, rng):
     return ValidatorSet(shared + others)
 
 
+def signed_commit(vs, by_addr, bid, height: int, t0: int, rng):
+    """A commit of `vs` for `bid` at `height`, signed with the keys
+    `by_addr`: ~90 % of the rows for the block, ~5 % nil, ~5 % absent;
+    row i's timestamp t0 + i."""
+    from tendermint_tpu_torch import Commit, CommitSig
+    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL
+
+    draw = rng.random(len(vs.validators))
+    flags = np.where(draw < 0.90, BLOCK_ID_FLAG_COMMIT, np.where(draw < 0.95, BLOCK_ID_FLAG_NIL, BLOCK_ID_FLAG_ABSENT))
+    sigs = []
+    for i, val in enumerate(vs.validators):
+        if flags[i] == BLOCK_ID_FLAG_ABSENT:
+            sigs.append(CommitSig.absent())
+        else:
+            sigs.append(CommitSig(int(flags[i]), val.address, t0 + i, b""))
+    commit = Commit(height, 0, bid, sigs)
+    for i, cs in enumerate(sigs):
+        if not cs.absent_():
+            cs.signature = by_addr[cs.validator_address].sign(commit.vote_sign_bytes(CHAIN, i))
+    return commit
+
+
 def build_commit(rng):
-    """A 10,000-validator set (seeded keys and powers) and a commit signed
-    by it: ~90 % of the rows for the block, ~5 % nil, ~5 % absent."""
-    from tendermint_tpu_torch import Commit, CommitSig, Ed25519PrivKey, Validator, ValidatorSet
-    from tendermint_tpu_torch.types.block import (
-        BLOCK_ID_FLAG_ABSENT,
-        BLOCK_ID_FLAG_COMMIT,
-        BLOCK_ID_FLAG_NIL,
-        BlockID,
-        PartSetHeader,
-    )
+    """A 10,000-validator set (seeded keys and powers), a commit signed
+    by it, its BlockID and the keys by address."""
+    from tendermint_tpu_torch import Ed25519PrivKey, Validator, ValidatorSet
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
     from tendermint_tpu_torch.types.validator_set import MAX_TOTAL_VOTING_POWER
 
     privs = [Ed25519PrivKey(rng.bytes(32)) for _ in range(N_VALS)]
@@ -325,19 +424,70 @@ def build_commit(rng):
     vs = ValidatorSet([Validator(p.pub_key(), int(w)) for p, w in zip(privs, powers)])
     by_addr = {p.pub_key().address(): p for p in privs}
     bid = BlockID(rng.bytes(32), PartSetHeader(4, rng.bytes(32)))
-    draw = rng.random(N_VALS)
-    flags = np.where(draw < 0.90, BLOCK_ID_FLAG_COMMIT, np.where(draw < 0.95, BLOCK_ID_FLAG_NIL, BLOCK_ID_FLAG_ABSENT))
-    sigs = []
-    for i, val in enumerate(vs.validators):
-        if flags[i] == BLOCK_ID_FLAG_ABSENT:
-            sigs.append(CommitSig.absent())
-        else:
-            sigs.append(CommitSig(int(flags[i]), val.address, 1_760_000_000_000_000_000 + i, b""))
-    commit = Commit(HEIGHT, 0, bid, sigs)
-    for i, cs in enumerate(sigs):
-        if not cs.absent_():
-            cs.signature = by_addr[cs.validator_address].sign(commit.vote_sign_bytes(CHAIN, i))
-    return vs, commit, bid
+    return vs, signed_commit(vs, by_addr, bid, HEIGHT, 1_760_000_000_000_000_000, rng), bid, by_addr
+
+
+def sha256_block_instructions(words) -> int:
+    """Instructions of one SHA-256 compression whose 16 message words are
+    `words`: None where a word depends on the data, else its constant
+    value. A schedule word made of constants alone folds away; otherwise
+    each sigma of a data word costs 4 and its data terms, with one folded
+    constant where that is not zero, are summed by 3-input IADD3s."""
+    def rotr(x, n):
+        return ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF
+
+    sigma = (lambda x: rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3), lambda x: rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10))
+    w, n = list(words), 0
+    for t in range(16, 64):
+        data, const = 0, 0
+        for x, f in ((w[t - 2], sigma[1]), (w[t - 7], None), (w[t - 15], sigma[0]), (w[t - 16], None)):
+            if x is None:
+                data += 1
+                n += 4 if f else 0
+            else:
+                const = (const + (f(x) if f else x)) & 0xFFFFFFFF
+        n += (data + (const != 0)) // 2 if data else 0
+        w.append(None if data else const)
+    return 64 * SHA256_ROUND_INSTR + n + SHA256_FEED_FORWARD_INSTR
+
+
+# A block of a leaf: all 16 words are data (the kernel reads whatever the
+# packer wrote). An inner node: block 1 is data, block 2 is right[31] ||
+# 0x80 || zeros || the 520-bit length, one data word.
+SHA256_DATA_BLOCK_INSTR = sha256_block_instructions([None] * 16)
+SHA256_INNER_NODE_INSTR = (SHA256_DATA_BLOCK_INSTR + sha256_block_instructions([None] + [0] * 14 + [520])
+                           - SHA256_FIRST_ROUND_FOLD)
+
+
+def sha256_leaf_ops(blocks: int, rows: int) -> int:
+    """Operations of `rows` leaves of `blocks` blocks in all."""
+    return 2 * (blocks * SHA256_DATA_BLOCK_INSTR - rows * SHA256_FIRST_ROUND_FOLD)
+
+
+def sass_opcodes(kernel: str):
+    """Opcode counts of `kernel` in the built library's SASS, read with
+    the toolkit's cuobjdump (static: a loop's body once), or None where
+    the toolkit has no cuobjdump."""
+    import re
+    from collections import Counter
+    from pathlib import Path
+
+    from tendermint_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, inside = Counter(), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                counts[m.group(1)] += 1
+    return dict(counts)
 
 
 def kernel_row(name, source, launches, err, ms, plain_ms, io_bytes, ops, rows, muls) -> dict:
@@ -368,6 +518,391 @@ def kernel_row(name, source, launches, err, ms, plain_ms, io_bytes, ops, rows, m
     }
 
 
+# -- phases 6 and 7: merkle roots and the light client ------------------------
+
+
+def host_root(items):
+    """Independent reference: the simple_tree.go recursion, verbatim."""
+    n = len(items)
+    if n == 0:
+        return hashlib.sha256(b"").digest()
+    if n == 1:
+        return hashlib.sha256(b"\x00" + items[0]).digest()
+    k = 1
+    while k * 2 < n:
+        k *= 2
+    return hashlib.sha256(b"\x01" + host_root(items[:k]) + host_root(items[k:])).digest()
+
+
+def host_tree(items):
+    """(root, aunts of every leaf, leaf level first) by the same
+    recursion (simple_proof.go): a leaf's aunts in the left subtree gain
+    the right subtree's root, and the other way round."""
+    if len(items) == 1:
+        return hashlib.sha256(b"\x00" + items[0]).digest(), [[]]
+    k = 1
+    while k * 2 < len(items):
+        k *= 2
+    left, la = host_tree(items[:k])
+    right, ra = host_tree(items[k:])
+    return hashlib.sha256(b"\x01" + left + right).digest(), [a + [right] for a in la] + [a + [left] for a in ra]
+
+
+def merkle_seams(sha, hasher, items):
+    """Both kernels of one tree against their plain versions, every level
+    on the card: (leaf seam error, inner seam error, root)."""
+    blocks, counts = hasher.MerkleHasher().pack(items)
+    b, c = torch.from_numpy(blocks).cuda(), torch.from_numpy(counts).cuda()
+    st = sha.leaf_block_states(b, c)
+    e_leaf = seam_err(st, sha.leaf_blocks_plain(b, c))
+    e_inner, m = 0, len(items)
+    while m > 1:
+        nxt = sha.merkle_inner_level(st, m)
+        e_inner = max(e_inner, seam_err(nxt, sha.inner_level_plain(st, m)))
+        st, m = nxt, (m + 1) // 2
+    torch.cuda.synchronize()
+    return e_leaf, e_inner, sha.state_to_digests(st.cpu().numpy())[0].tobytes()
+
+
+def check_proofs(merkle, items, what: str) -> None:
+    """The port's root and every proof's aunts against host_tree."""
+    root, aunts = host_tree(items)
+    got_root, proofs = merkle.proofs_from_byte_slices(items)
+    require(got_root == root and merkle.hash_from_byte_slices(items) == root, f"{what}: root equals hashlib's")
+    require([p.aunts for p in proofs] == aunts and all(p.index == i and p.total == len(items)
+                                                       for i, p in enumerate(proofs)),
+            f"{what}: every proof's aunts equal hashlib's")
+
+
+def adversarial_leaves(rng, m: int):
+    """m leaves of 0-299 random bytes with the edge cases spread over
+    them: the empty leaf, 54 and 55 bytes (one block and two with the
+    0x00 prefix) and a 40-block leaf."""
+    items = [rng.bytes(int(k)) for k in rng.integers(0, 300, m)]
+    for j, leaf in enumerate((b"", rng.bytes(54), rng.bytes(55), rng.bytes(40 * 64 - 73))):
+        items[j * m // 4] = leaf
+    return items
+
+
+def fresh_set(vs, change_power_of: int = -1):
+    """A new ValidatorSet of the same validators (nothing memoised: its
+    hash and the pubkey encodings are computed anew, as for a set a
+    light client has just received); with `change_power_of`, that
+    validator's power plus one."""
+    from tendermint_tpu_torch import Validator, ValidatorSet
+
+    return ValidatorSet([Validator(v.pub_key, v.voting_power + (i == change_power_of))
+                         for i, v in enumerate(vs.validators)])
+
+
+def events_and_wall(fn, make, reps: int):
+    """p50 and p99 of CUDA events and p50 of the host clock around
+    fn(make()) over `reps` calls; make() runs outside the timed span."""
+    walls, events = [], []
+    for _ in range(reps):
+        arg = make()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+        events.append(start.elapsed_time(end))
+    return float(np.percentile(events, 50)), float(np.percentile(events, 99)), float(np.percentile(walls, 50))
+
+
+def root_split(sha, merkle, hasher, leaves_of, obj_of, reps: int = 10):
+    """The host clock split of a root at 10,000 leaves: the leaves'
+    encodings, packing, upload with the kernels and the tail's download,
+    the host finish; and the same root by hashlib alone."""
+    parts = {"encode": [], "pack": [], "upload_kernels_download": [], "host_finish": [], "hashlib_alone": []}
+    h = hasher.MerkleHasher()
+    for _ in range(reps):
+        obj = obj_of()
+        t = time.perf_counter()
+        leaves = leaves_of(obj)
+        t1 = time.perf_counter()
+        blocks, counts = h.pack(leaves)
+        t2 = time.perf_counter()
+        tail = sha.state_to_digests(h.device_levels(blocks, counts)[-1].cpu().numpy())
+        t3 = time.perf_counter()
+        top = hasher.host_levels([tail[i].tobytes() for i in range(tail.shape[0])])
+        t4 = time.perf_counter()
+        saved = merkle.DEVICE_THRESHOLD
+        merkle.DEVICE_THRESHOLD = len(leaves) + 1
+        try:
+            alone = merkle.hash_from_byte_slices(leaves)
+        finally:
+            merkle.DEVICE_THRESHOLD = saved
+        t5 = time.perf_counter()
+        require(top[-1][0] == alone, "the split's root equals hashlib's")
+        for key, dt in zip(parts, (t1 - t, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            parts[key].append(1e3 * dt)
+    return {key: float(np.median(v)) for key, v in parts.items()}
+
+
+def inner_bound(widths):
+    """(bytes, operations) of the inner levels of one tree: each level
+    read once and the next written once; two compressions a pair."""
+    io = sum(32 * w + 32 * ((w + 1) // 2) for w in widths)
+    return io, sum(w // 2 for w in widths) * 2 * SHA256_INNER_NODE_INSTR
+
+
+def phase6(vs, commit, card):
+    """The merkle kernels: seams, roots and aunts, launch counts and
+    times. Returns the two kernels' rows of the JSON line."""
+    from tendermint_tpu_torch.crypto import merkle
+    from tendermint_tpu_torch.models import hasher
+    from tendermint_tpu_torch.ops import sha256 as sha
+
+    rng = np.random.default_rng(SEED + 6)
+    t0 = time.perf_counter()
+    errs = {"sha256_leaf_blocks": {}, "merkle_inner_level": {}}
+    saved = merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH
+    merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH = 2, 1
+    try:
+        adv_leaf = adv_inner = 0
+        for m in MERKLE_M:
+            items = adversarial_leaves(rng, m)
+            e_leaf, e_inner, root = merkle_seams(sha, hasher, items)
+            adv_leaf, adv_inner = max(adv_leaf, e_leaf), max(adv_inner, e_inner)
+            require(root == host_root(items), f"{m} adversarial leaves: the kernels' root equals hashlib's")
+            check_proofs(merkle, items, f"{m} adversarial leaves, every level on the card")
+    finally:
+        merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH = saved
+    for length in (55, 56):
+        msgs = rng.integers(0, 256, (257, length), dtype=np.uint8)
+        dev = torch.from_numpy(msgs).cuda()
+        got = sha.sha256(dev).cpu().numpy()
+        require([r.tobytes() for r in got] == [hashlib.sha256(r.tobytes()).digest() for r in msgs],
+                 f"sha256 of {length}-byte messages equals hashlib's")
+        blocks = sha.pad(dev).contiguous()
+        counts = torch.full((257,), blocks.shape[1], dtype=torch.int32, device=blocks.device)
+        adv_leaf = max(adv_leaf, seam_err(sha.leaf_block_states(blocks, counts), sha.leaf_blocks_plain(blocks, counts)))
+    errs["sha256_leaf_blocks"]["adversarial"], errs["merkle_inner_level"]["adversarial"] = adv_leaf, adv_inner
+    print(f"phase 6: adversarial trees m = {MERKLE_M} (empty, 54-, 55-byte and 40-block leaves), every level on "
+          f"the card: seams identical to the plain versions (leaf {adv_leaf}, inner {adv_inner}), roots and aunts "
+          f"= hashlib; sha256 of 55- and 56-byte messages = hashlib ({time.perf_counter() - t0:.1f} s)")
+
+    trees = {
+        "ValidatorSet.hash": (lambda: fresh_set(vs), lambda o: [v.hash_bytes() for v in o.validators],
+                              lambda o: o.hash()),
+        "Commit.hash": (lambda: fresh(commit), lambda o: [cs.encode() for cs in o.signatures], lambda o: o.hash()),
+    }
+    out = {}
+    for name, (make, leaves_of, run) in trees.items():
+        obj = make()
+        leaves = leaves_of(obj)
+        root, aunts = host_tree(leaves)
+        sha.reset_launches()
+        got = run(obj)
+        torch.cuda.synchronize()
+        n_launch = sha.launches()
+        require(got == root, f"{name} at {N_VALS}: root equals hashlib's")
+        require(n_launch == {"sha256_leaf_blocks": 1, "merkle_inner_level": 7},
+                f"{name} at {N_VALS}: one leaf launch and seven inner ones: {n_launch}")
+        check_proofs(merkle, leaves, f"{name} leaves")
+        e_leaf, e_inner, seam_root = merkle_seams(sha, hasher, leaves)
+        require(seam_root == root, f"{name}: every level on the card gives hashlib's root")
+        errs["sha256_leaf_blocks"][name], errs["merkle_inner_level"][name] = e_leaf, e_inner
+        p50, p99, wall = events_and_wall(run, make, reps=30)
+        split = root_split(sha, merkle, hasher, leaves_of, make)
+        blocks, counts = hasher.MerkleHasher().pack(leaves)
+        b, c = torch.from_numpy(blocks).cuda(), torch.from_numpy(counts).cuda()
+        widths = []
+        w = len(leaves)
+        while w > hasher.HOST_TAIL_WIDTH:
+            widths.append(w)
+            w = (w + 1) // 2
+        state = sha.leaf_block_states(b, c)
+
+        def levels(f, st=state):
+            for width in widths:
+                st = f(st, width)
+            return st
+
+        out[name] = dict(
+            launches=n_launch, p50=p50, p99=p99, wall=wall, split=split, rows=len(leaves), widths=widths,
+            blocks=int(counts.sum()),
+            leaf_ms=device_ms(lambda: sha.leaf_block_states(b, c), reps=20),
+            leaf_call_ms=median_ms(lambda: sha.leaf_block_states(b, c), reps=20, repeats=5),
+            leaf_plain_ms=median_ms(lambda: sha.leaf_blocks_plain(b, c), reps=1, repeats=3),
+            inner_ms=device_ms(lambda: levels(sha.merkle_inner_level), reps=20),
+            inner_call_ms=median_ms(lambda: levels(sha.merkle_inner_level), reps=20, repeats=5),
+            inner_plain_ms=median_ms(lambda: levels(sha.inner_level_plain), reps=1, repeats=3),
+        )
+        print(f"  {name} @{N_VALS} ({out[name]['blocks']} blocks in {len(leaves)} leaves): root and aunts = "
+              f"hashlib, seams identical (leaf {e_leaf}, inner {e_inner}), launches {n_launch}; 30 calls on fresh "
+              f"objects, CUDA events p50 {p50:.3f} ms p99 {p99:.3f} ms, host clock p50 {wall:.3f} ms ({card})")
+        print("    host clock split (medians of 10): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+        print(f"    kernels on the device alone: leaf {out[name]['leaf_ms']:.4f} ms, the {len(widths)} inner levels "
+              f"{out[name]['inner_ms']:.4f} ms (outputs {(widths[0] + 1) // 2} -> {(widths[-1] + 1) // 2} nodes); "
+              f"back-to-back calls with the host's launch cost: leaf {out[name]['leaf_call_ms']:.4f} ms, inner "
+              f"{out[name]['inner_call_ms']:.4f} ms")
+
+    vsh, ch = out["ValidatorSet.hash"], out["Commit.hash"]
+    rows = {}
+    for name, key, replaces, also in (
+        ("sha256_leaf_blocks", "leaf", "tendermint_tpu/ops/sha256.py:131",
+         "tendermint_tpu/ops/sha256.py:140 (leaf_block_update)"),
+        ("merkle_inner_level", "inner", "tendermint_tpu/ops/sha256.py:159",
+         "tendermint_tpu/ops/sha256.py:218 (merkle_inner_tail)"),
+    ):
+        ms_key, plain_key, call_key = f"{key}_ms", f"{key}_plain_ms", f"{key}_call_ms"
+        per = {}
+        for tree, o in (("valset", vsh), ("commit", ch)):
+            if name == "sha256_leaf_blocks":
+                io, ops = o["blocks"] * 64 + o["rows"] * (4 + 32), sha256_leaf_ops(o["blocks"], o["rows"])
+            else:
+                io, ops = inner_bound(o["widths"])
+            per[tree] = (io, ops)
+        io, ops = per["valset"]
+        row = kernel_row(name, "sha256_kernels.cu", None, max(errs[name].values()), vsh[call_key],
+                         vsh[plain_key], io, ops, vsh["rows"], None)
+        cio, cops = per["commit"]
+        sass = sass_opcodes(name)
+        row.update(
+            replaces=replaces, replaces_also=also, max_abs_err_by_input=errs[name],
+            shape=("10,000 one-block leaves (ValidatorSet.hash), one launch" if name == "sha256_leaf_blocks"
+                   else f"the {len(vsh['widths'])} levels of ValidatorSet.hash, widths {vsh['widths']}"),
+            ms_device_only=vsh[ms_key],
+            launches_valset_hash=vsh["launches"][name], launches_commit_hash=ch["launches"][name],
+            commit_hash_ms=ch[call_key], commit_hash_ms_device_only=ch[ms_key],
+            commit_hash_plain_ms=ch[plain_key],
+            commit_hash_bound_ms=1e3 * max(cio / HBM_BYTES_PER_S, cops / INT32_MAD_OPS_PER_S),
+            commit_hash_blocks=ch["blocks"],
+            instructions_counted=(SHA256_DATA_BLOCK_INSTR if name == "sha256_leaf_blocks"
+                                  else SHA256_INNER_NODE_INSTR),
+            sass_static_opcodes=sass,
+        )
+        rows[name] = row
+        if sass is not None:
+            top = sorted(sass.items(), key=lambda kv: -kv[1])[:6]
+            print(f"  {name}: the bound counts {row['instructions_counted']} instructions a "
+                  f"{'block' if name == 'sha256_leaf_blocks' else 'node'}; its SASS holds {sum(sass.values())} "
+                  f"(static; " + ", ".join(f"{k} {v}" for k, v in top) + ")")
+        else:
+            print(f"  {name}: no cuobjdump in the toolkit, SASS not counted")
+    return rows
+
+
+def phase7(vs, by_addr, rng, card, kernels):
+    """The light client at 10,000 validators; fills in the launch counts
+    of `kernels` (the JSON rows) from its runs."""
+    from tendermint_tpu_torch import Ed25519PrivKey, Ed25519PubKey, Validator, ValidatorSet
+    from tendermint_tpu_torch.light import verifier as lv
+    from tendermint_tpu_torch.light.types import SignedHeader
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import sha256 as sha
+    from tendermint_tpu_torch.types.block import BlockID, Commit, Header, PartSetHeader
+
+    t0 = time.perf_counter()
+    new_privs = [Ed25519PrivKey(rng.bytes(32)) for _ in range(3)]
+    keys = dict(by_addr)
+    keys.update({p.pub_key().address(): p for p in new_privs})
+    kept = [v for i, v in enumerate(vs.validators) if i not in (11, 4444, 9999)]
+    s2 = ValidatorSet(kept + [Validator(p.pub_key(), int(w)) for p, w in zip(new_privs, rng.integers(1, 1 << 40, 3))])
+    strangers = ValidatorSet([Validator(Ed25519PubKey(rng.bytes(32)), int(w)) for w in rng.integers(1, 1 << 40, N_VALS)])
+    h1 = Header(CHAIN, 20, LIGHT_T0, validators_hash=vs.hash(), next_validators_hash=vs.hash(),
+                app_hash=rng.bytes(32), proposer_address=vs.validators[0].address)
+    bid1 = BlockID(h1.hash(), PartSetHeader(1, rng.bytes(32)))
+    sh1 = SignedHeader(h1, Commit(20, 0, bid1, []))  # trusted: its commit is not read
+    h2 = Header(CHAIN, 21, LIGHT_T0 + 5 * 10**9, last_block_id=bid1, validators_hash=vs.hash(),
+                next_validators_hash=s2.hash(), app_hash=rng.bytes(32), proposer_address=vs.validators[1].address)
+    sh2 = SignedHeader(h2, signed_commit(vs, keys, BlockID(h2.hash(), PartSetHeader(1, rng.bytes(32))), 21,
+                                         h2.time_ns, rng))
+    h4 = Header(CHAIN, 23, LIGHT_T0 + 15 * 10**9, validators_hash=s2.hash(), next_validators_hash=s2.hash(),
+                app_hash=rng.bytes(32), proposer_address=s2.validators[0].address)
+    sh4 = SignedHeader(h4, signed_commit(s2, keys, BlockID(h4.hash(), PartSetHeader(1, rng.bytes(32))), 23,
+                                         h4.time_ns, rng))
+    print(f"phase 7: light chain h1 (trusted), h2 under S, h4 under S' (S with 3 validators replaced); the two "
+          f"{N_VALS}-validator commits signed in {time.perf_counter() - t0:.1f} s")
+    fresh_sh = lambda sh: SignedHeader(sh.header, fresh(sh.commit))  # noqa: E731
+    args = dict(now_ns=LIGHT_NOW)
+
+    def counted(fn):
+        ed.reset_launches()
+        sha.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        return {**ed.launches(), **sha.launches()}
+
+    adj = counted(lambda: lv.verify(CHAIN, sh1, vs, fresh_sh(sh2), fresh_set(vs), TRUSTING_PERIOD, **args))
+    require(adj["sha256_leaf_blocks"] == 1 and adj["merkle_inner_level"] == 7,
+            f"verify (adjacent) hashed the untrusted set through the merkle kernels: {adj}")
+    require(all(adj[k] > 0 for k in ("ed25519_prepare_tabled", "ed25519_scan_tabled", "ed25519_finish")),
+            f"verify (adjacent) ran the tabled ed25519 kernels: {adj}")
+    require(adj["ed25519_prepare"] == 0 and adj["ed25519_scan"] == 0,
+            f"verify (adjacent) did not run the generic prepare and scan: {adj}")
+    print(f"  verify(h1 -> h2) passed: launches {adj}")
+    chain = counted(lambda: lv.verify_chain(CHAIN, sh1, vs, [(fresh_sh(sh2), fresh_set(vs)),
+                                                             (fresh_sh(sh4), fresh_set(s2))], TRUSTING_PERIOD, **args))
+    require(chain["ed25519_prepare"] == 1 and chain["ed25519_scan"] == 1 and chain["ed25519_finish"] == 1,
+            f"verify_chain over S and S' ran the generic kernels once, in one verify_batch call: {chain}")
+    require(chain["sha256_leaf_blocks"] == 2 and chain["merkle_inner_level"] == 14,
+            f"verify_chain hashed S and S' through the merkle kernels: {chain}")
+    require(chain["ed25519_prepare_tabled"] == 0 and chain["ed25519_scan_tabled"] == 0,
+            f"verify_chain over two sets took the generic path alone: {chain}")
+    print(f"  verify_chain(h1, [h2, h4]) passed: launches {chain}")
+
+    def expect(fn, cls: str, message: str, what: str) -> None:
+        try:
+            fn()
+        except Exception as e:  # the verdict under test is the exception itself
+            require(type(e).__name__ == cls and str(e) == message, f"{what}: {type(e).__name__}: {e}")
+            print(f"  {what}: {cls} ({e})")
+            return
+        raise RuntimeError(f"{what} was accepted")
+
+    expect(lambda: lv.verify(CHAIN, sh1, vs, fresh_sh(sh2), fresh_set(vs, change_power_of=77), TRUSTING_PERIOD,
+                             **args),
+           "ErrInvalidHeader", "expected new header validators to match those supplied",
+           "one power changed in the untrusted set")
+    expect(lambda: lv.verify(CHAIN, sh2, strangers, fresh_sh(sh4), fresh_set(s2), TRUSTING_PERIOD, **args),
+           "ErrNewValSetCantBeTrusted", f"have 0, need > {strangers.total_voting_power() // 3}",
+           "skip link from a set of fresh keys")
+    bad = fresh(sh2.commit)
+    bad.signatures = list(bad.signatures)
+    row = next(i for i, cs in enumerate(bad.signatures) if cs.for_block())
+    cs = bad.signatures[row]
+    bad.signatures[row] = dataclasses.replace(cs, signature=bytes([cs.signature[0] ^ 1]) + cs.signature[1:])
+    expect(lambda: lv.verify_chain(CHAIN, sh1, vs, [(SignedHeader(h2, bad), fresh_set(vs)),
+                                                    (fresh_sh(sh4), fresh_set(s2))], TRUSTING_PERIOD, **args),
+           "ErrInvalidCommitSignature", f"wrong signature #{row} ({cs.validator_address.hex()})",
+           "a bad signature before quorum in h2, out of verify_chain")
+
+    a50, a99, awall = events_and_wall(lambda a: lv.verify(CHAIN, sh1, vs, a[0], a[1], TRUSTING_PERIOD, **args),
+                                      lambda: (fresh_sh(sh2), fresh_set(vs)), reps=30)
+    c50, c99, cwall = events_and_wall(
+        lambda a: lv.verify_chain(CHAIN, sh1, vs, [(a[0], a[1]), (a[2], a[3])], TRUSTING_PERIOD, **args),
+        lambda: (fresh_sh(sh2), fresh_set(vs), fresh_sh(sh4), fresh_set(s2)), reps=10)
+    hash_ms, rest_ms = [], []
+    for _ in range(10):
+        fs, fh = fresh_set(vs), fresh_sh(sh2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fs.hash()
+        t1 = time.perf_counter()
+        lv.verify(CHAIN, sh1, vs, fh, fs, TRUSTING_PERIOD, **args)  # the hash is memoised now
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        hash_ms.append(1e3 * (t1 - t))
+        rest_ms.append(1e3 * (t2 - t1))
+    hm, rm = float(np.median(hash_ms)), float(np.median(rest_ms))
+    print(f"  verify (adjacent) @{N_VALS}: 30 warm runs on fresh objects, CUDA events p50 {a50:.3f} ms p99 {a99:.3f} "
+          f"ms, host clock p50 {awall:.3f} ms; verify_chain (h2 and h4, 3 commit checks over 2 sets): 10 runs, "
+          f"p50 {c50:.3f} ms p99 {c99:.3f} ms, host clock p50 {cwall:.3f} ms ({card})")
+    print(f"  split of an adjacent step (medians of 10, host clock): the untrusted set's hash {hm:.3f} ms, "
+          f"the rest {rm:.3f} ms: the hash {100 * hm / (hm + rm):.1f} % of the step")
+    for name, row in kernels.items():
+        row["launches_light_verify_adjacent"] = adj[name]
+        row["launches_light_verify_chain"] = chain[name]
+    for name in ("sha256_leaf_blocks", "merkle_inner_level"):
+        kernels[name]["launches"] = adj[name]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -378,6 +913,7 @@ def main() -> int:
     from tendermint_tpu_torch.ops import ed25519 as ed
     from tendermint_tpu_torch.ops import ref_ed25519 as ref
 
+    t_start = time.perf_counter()
     card = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -385,7 +921,7 @@ def main() -> int:
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     lib_path = _build.build()
-    print(f"phase 1: built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 1: built {lib_path.name} (ed25519 and SHA-256 kernels) in {time.perf_counter() - t0:.1f} s")
     for line in _build.ptxas_log().splitlines():
         if "registers" in line or "stack frame" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -423,7 +959,7 @@ def main() -> int:
 
     # -- phase 3: the generic path -------------------------------------------
     t0 = time.perf_counter()
-    vs, commit, bid = build_commit(rng)
+    vs, commit, bid, by_addr = build_commit(rng)
     print(f"phase 3: {N_VALS}-validator set and commit signed in {time.perf_counter() - t0:.1f} s")
     generic = ("ed25519_prepare", "ed25519_scan", "ed25519_finish")
     tabled = ("ed25519_build_tables", "ed25519_prepare_tabled", "ed25519_scan_tabled")
@@ -527,7 +1063,8 @@ def main() -> int:
         kernels[name] = kernel_row(name, "ed25519_kernels.cu", launches[name], max(errs[name], errs_main[name]),
                                    median_ms(kern, reps=20, repeats=5), median_ms(plain, reps=1, repeats=3),
                                    io_bytes[name], ops[name], n, muls[name])
-        kernels[name].update(max_abs_err_adversarial=errs[name], max_abs_err_main_path=errs_main[name])
+        kernels[name].update(max_abs_err_adversarial=errs[name], max_abs_err_main_path=errs_main[name],
+                             ms_device_only=device_ms(kern, reps=20))
     print(f"  generic kernels sum {sum(k['ms'] for k in kernels.values()):.4f} ms of the fresh-commit verify_commit p50 {p50:.3f} ms")
 
     # -- phase 5: the per-valset tabled path -----------------------------------
@@ -698,14 +1235,21 @@ def main() -> int:
                                    max(errs_t_main[name], errs_t_adv[name]), median_ms(kern, reps=reps, repeats=3),
                                    plain_ms, t_bytes[name], t_ops[name], rows, tmuls[name])
         kernels[name].update(replaces=replaces_t[name], max_abs_err_adversarial=errs_t_adv[name],
-                             max_abs_err_main_path=errs_t_main[name])
+                             max_abs_err_main_path=errs_t_main[name], ms_device_only=device_ms(kern, reps=reps))
     kernels["ed25519_finish"]["launches_tabled_path"] = launches_t["ed25519_finish"]
-    for k in kernels.values():
-        print(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.1f} ms, bound {k['bound_ms']:.4f} ms by "
-              f"{k['bound_by']}, {k['field_muls_per_row']} field muls/row, {k['rows']} rows)")
     per_call = sum(kernels[k]["ms"] for k in ("ed25519_prepare_tabled", "ed25519_scan_tabled", "ed25519_finish"))
     print(f"  tabled kernels per call sum {per_call:.4f} ms of the fresh-commit verify_commit p50 {t50:.3f} ms "
           f"(ed25519_finish timed with its tally in phase 4)")
+
+    # -- phases 6 and 7: merkle roots and the light client ---------------------
+    kernels.update(phase6(vs, commit, card))
+    phase7(vs, by_addr, rng, card, kernels)
+    for k in kernels.values():
+        muls = "" if k["field_muls_per_row"] is None else f", {k['field_muls_per_row']} field muls/row"
+        print(f"  {k['name']}: {k['ms']:.4f} ms ({k['ms_device_only']:.4f} on the device alone; plain "
+              f"{k['plain_ms']:.1f} ms, bound {k['bound_ms']:.4f} ms by "
+              f"{k['bound_by']}{muls}, {k['rows']} rows), {k['launches']} launches on its path")
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,13 +6,19 @@ So far: ``ValidatorSet.verify_commit`` and the light client's
 path (the set's keys tabulated once, three CUDA kernels for that and the
 per-commit work, then the generic path's finish kernel), and on the
 generic batched path for providers without tables (three CUDA kernels;
-``ops/ed25519.py``, ``csrc/``). The package imports torch, numpy and the
+``ops/ed25519.py``, ``csrc/``); the light client's header verification
+(``light.verifier``: ``verify``, ``verify_chain``, ``verify_backwards``),
+with many commits in one device call (``verify_commits_batched``); and
+the merkle roots ``ValidatorSet.hash`` and ``Commit.hash`` through two
+SHA-256 CUDA kernels (``ops/sha256.py``, ``models/hasher.py``,
+``crypto/merkle.py``). The package imports torch, numpy and the
 standard library, never jax and nothing of tendermint_tpu. Entry points
 run on the card unless the caller passes device="cpu".
 """
 
 from tendermint_tpu_torch.crypto.batch import BatchVerifier, TorchBatchVerifier, default_provider
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey, Ed25519PubKey
+from tendermint_tpu_torch.models.hasher import MerkleHasher
 from tendermint_tpu_torch.models.verifier import VerifierModel
 from tendermint_tpu_torch.ops.ed25519 import (
     build_valset_tables,
@@ -22,13 +28,15 @@ from tendermint_tpu_torch.ops.ed25519 import (
     verify_stage_scan,
     verify_stage_scan_tabled,
 )
-from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, PartSetHeader
+from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, Header, PartSetHeader
 from tendermint_tpu_torch.types.validator import Validator
 from tendermint_tpu_torch.types.validator_set import (
     ErrInvalidCommit,
     ErrInvalidCommitSignature,
     ErrNotEnoughVotingPower,
+    CommitVerifySpec,
     ValidatorSet,
+    verify_commits_batched,
 )
 from tendermint_tpu_torch.utils.device import resolve_device
 
@@ -37,11 +45,14 @@ __all__ = [
     "BlockID",
     "Commit",
     "CommitSig",
+    "CommitVerifySpec",
     "Ed25519PrivKey",
     "Ed25519PubKey",
     "ErrInvalidCommit",
     "ErrInvalidCommitSignature",
     "ErrNotEnoughVotingPower",
+    "Header",
+    "MerkleHasher",
     "PartSetHeader",
     "TorchBatchVerifier",
     "Validator",
@@ -55,4 +66,5 @@ __all__ = [
     "verify_stage_prepare_tabled",
     "verify_stage_scan",
     "verify_stage_scan_tabled",
+    "verify_commits_batched",
 ]

@@ -1,7 +1,7 @@
 """Deterministic length-prefixed binary encoding: the part of the JAX
 package's ``codec/binary.py`` that the port's types use (the writer).
 Unsigned LEB128 varints, fixed-width big-endian ints,
-uvarint-length-prefixed bytes."""
+uvarint-length-prefixed bytes and strings."""
 
 from __future__ import annotations
 
@@ -30,11 +30,26 @@ class Writer:
                 self._buf.write(bytes([b]))
                 return self
 
+    def write_u8(self, n: int) -> "Writer":
+        self._buf.write(struct.pack(">B", n))
+        return self
+
     def write_u32(self, n: int) -> "Writer":
         self._buf.write(struct.pack(">I", n))
+        return self
+
+    def write_u64(self, n: int) -> "Writer":
+        self._buf.write(struct.pack(">Q", n))
+        return self
+
+    def write_i64(self, n: int) -> "Writer":
+        self._buf.write(struct.pack(">q", n))
         return self
 
     def write_bytes(self, data: bytes) -> "Writer":
         self.write_uvarint(len(data))
         self._buf.write(data)
         return self
+
+    def write_str(self, s: str) -> "Writer":
+        return self.write_bytes(s.encode("utf-8"))

@@ -11,6 +11,8 @@ Commit: height, round, the BlockID (hash, parts total, parts hash), and
 per row: flags (V,) uint8 (BlockIDFlag), timestamps (V,) int64 ns and
 signatures, a list of V bytes objects (any length, b"" when absent).
 Validator addresses are recomputed from the pubkeys.
+Header: its field values (str, ints and bytes), the last BlockID as
+(hash, parts total, parts hash).
 """
 
 from __future__ import annotations
@@ -21,7 +23,15 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
-from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_ABSENT, BlockID, Commit, CommitSig, PartSetHeader
+from tendermint_tpu_torch.types.block import (
+    BLOCK_ID_FLAG_ABSENT,
+    BLOCK_PROTOCOL,
+    BlockID,
+    Commit,
+    CommitSig,
+    Header,
+    PartSetHeader,
+)
 from tendermint_tpu_torch.types.validator import Validator
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
@@ -80,3 +90,35 @@ def commit(
             sigs.append(CommitSig(int(flag), addr, int(ts), bytes(sig)))
     bid = BlockID(bytes(block_hash), PartSetHeader(int(parts_total), bytes(parts_hash)))
     return Commit(int(height), int(round_), bid, sigs)
+
+
+def header(
+    chain_id: str,
+    height: int,
+    time_ns: int,
+    last_block_id=(b"", 0, b""),
+    last_commit_hash: bytes = b"",
+    data_hash: bytes = b"",
+    validators_hash: bytes = b"",
+    next_validators_hash: bytes = b"",
+    consensus_hash: bytes = b"",
+    app_hash: bytes = b"",
+    last_results_hash: bytes = b"",
+    evidence_hash: bytes = b"",
+    proposer_address: bytes = b"",
+    version_block: int = BLOCK_PROTOCOL,
+    version_app: int = 0,
+) -> Header:
+    """The port's Header from a header's field values; `last_block_id`
+    is (hash, parts total, parts hash)."""
+    lb_hash, lb_total, lb_parts = last_block_id
+    return Header(
+        chain_id=str(chain_id), height=int(height), time_ns=int(time_ns),
+        last_block_id=BlockID(bytes(lb_hash), PartSetHeader(int(lb_total), bytes(lb_parts))),
+        last_commit_hash=bytes(last_commit_hash), data_hash=bytes(data_hash),
+        validators_hash=bytes(validators_hash), next_validators_hash=bytes(next_validators_hash),
+        consensus_hash=bytes(consensus_hash), app_hash=bytes(app_hash),
+        last_results_hash=bytes(last_results_hash), evidence_hash=bytes(evidence_hash),
+        proposer_address=bytes(proposer_address), version_block=int(version_block),
+        version_app=int(version_app),
+    )

@@ -10,9 +10,11 @@ path; batches go through ``crypto/batch.py``.
 
 from __future__ import annotations
 
+from tendermint_tpu_torch.codec.binary import Writer
 from tendermint_tpu_torch.crypto.hash import address_hash
 from tendermint_tpu_torch.ops import ref_ed25519 as ref
 
+ED25519_TYPE = "ed25519"
 ED25519_PUBKEY_SIZE = 32
 ED25519_PRIVKEY_SIZE = 64  # seed || pubkey, Go's layout
 ED25519_SIGNATURE_SIZE = 64
@@ -67,3 +69,10 @@ class Ed25519PrivKey:
 
     def __repr__(self) -> str:
         return "PrivKeyEd25519{…}"
+
+
+def encode_pubkey(pk: Ed25519PubKey) -> bytes:
+    """The key registry's wire encoding: the type name, then the key
+    bytes (the JAX package's ``crypto/keys.py`` encode_pubkey). The port
+    has one key type."""
+    return Writer().write_str(ED25519_TYPE).write_bytes(pk.bytes()).bytes()

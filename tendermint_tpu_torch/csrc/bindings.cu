@@ -1,4 +1,4 @@
-// Plain C entry points of the ed25519 kernels, loaded with ctypes by
+// Plain C entry points of the ed25519 and SHA-256 kernels, loaded with ctypes by
 // ops/_build.py. Each returns the cudaError_t of its launch (0 = launched);
 // the Python wrapper raises on anything else. Pointers are device
 // pointers from torch tensors, `stream` is PyTorch's current stream.
@@ -20,6 +20,8 @@ cudaError_t launch_prepare_tabled(const uint8_t*, const int32_t*, int, const uin
                                   uint8_t*, cudaStream_t);
 cudaError_t launch_scan_tabled(const int8_t*, const int8_t*, const int32_t*, const uint8_t*, const int32_t*, int,
                                int, int32_t*, uint8_t*, cudaStream_t);
+cudaError_t launch_sha256_leaf_blocks(const uint8_t*, const int32_t*, int, int, uint32_t*, cudaStream_t);
+cudaError_t launch_merkle_inner_level(const uint32_t*, int, int, uint32_t*, cudaStream_t);
 }  // namespace tmk
 
 extern "C" {
@@ -80,6 +82,15 @@ int tm_ed25519_scan_tabled(const void* sd8, const void* kd, const void* tables, 
   return (int)tmk::launch_scan_tabled((const int8_t*)sd8, (const int8_t*)kd, (const int32_t*)tables,
                                      (const uint8_t*)a_tab, (const int32_t*)idx, v, n, (int32_t*)out,
                                      (uint8_t*)a_ok, (cudaStream_t)stream);
+}
+
+int tm_sha256_leaf_blocks(const void* blocks, const void* counts, int n, int n_blocks, void* state, void* stream) {
+  return (int)tmk::launch_sha256_leaf_blocks((const uint8_t*)blocks, (const int32_t*)counts, n, n_blocks,
+                                            (uint32_t*)state, (cudaStream_t)stream);
+}
+
+int tm_merkle_inner_level(const void* level, int c, int m, void* out, void* stream) {
+  return (int)tmk::launch_merkle_inner_level((const uint32_t*)level, c, m, (uint32_t*)out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/``).
+"""Build and load the hand-written CUDA kernels (``csrc/``): ed25519
+and SHA-256.
 
 The kernels are compiled at first use on the machine with the card, with
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the repo root
@@ -13,7 +14,8 @@ After loading, the curve constants and the [1..8]B table (from the
 pure-Python oracle) and SHA-512's round constants are copied into the
 kernels' ``__constant__`` memory, and the tabled scan's 8-bit base comb
 (491,520 B, too large for ``__constant__``) into a ``__device__`` array,
-once per device.
+once per device. SHA-256's round constants are compiled in
+(``sha256.cuh``).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("ed25519_kernels.cu", "ed25519_tabled.cu", "bindings.cu")
-HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "sha512.cuh")
+SOURCES = ("ed25519_kernels.cu", "ed25519_tabled.cu", "sha256_kernels.cu", "bindings.cu")
+HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "sha512.cuh", "sha256.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -68,7 +70,7 @@ def _digest() -> str:
 def build() -> Path:
     """Compile the kernels if this digest has not been built; return the
     library's path. Raises with nvcc's output when a compile fails."""
-    out = BUILD_DIR / f"libtm_ed25519_{_digest()}.so"
+    out = BUILD_DIR / f"libtm_kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -99,7 +101,7 @@ def build() -> Path:
 
 def ptxas_log() -> str:
     """What ``-Xptxas -v`` said (registers, spills) for the current build."""
-    p = BUILD_DIR / f"libtm_ed25519_{_digest()}.so.ptxas.log"
+    p = BUILD_DIR / f"libtm_kernels_{_digest()}.so.ptxas.log"
     return p.read_text() if p.exists() else ""
 
 
@@ -115,9 +117,11 @@ def _declare(lib) -> None:
     lib.tm_ed25519_build_tables.argtypes = [vp, i32, vp, vp, vp, vp]
     lib.tm_ed25519_prepare_tabled.argtypes = [vp, vp, i32, vp, i32, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, vp]
     lib.tm_ed25519_scan_tabled.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp, vp, vp]
+    lib.tm_sha256_leaf_blocks.argtypes = [vp, vp, i32, i32, vp, vp]
+    lib.tm_merkle_inner_level.argtypes = [vp, i32, i32, vp, vp]
     for fn in (lib.tm_set_constants, lib.tm_ed25519_prepare, lib.tm_ed25519_scan, lib.tm_ed25519_finish,
                lib.tm_set_comb, lib.tm_ed25519_build_tables, lib.tm_ed25519_prepare_tabled,
-               lib.tm_ed25519_scan_tabled):
+               lib.tm_ed25519_scan_tabled, lib.tm_sha256_leaf_blocks, lib.tm_merkle_inner_level):
         fn.restype = i32
 
 

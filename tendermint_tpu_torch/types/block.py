@@ -1,8 +1,10 @@
-"""PartSetHeader, BlockID, CommitSig and Commit: the port's copy of the
-parts of the JAX package's ``types/block.py`` that commit verification
-reads (reference types/block.go: Commit :572, CommitSig :468,
+"""PartSetHeader, BlockID, CommitSig, Commit and Header: the port's copy
+of the parts of the JAX package's ``types/block.py`` that commit
+verification and the light client read (reference types/block.go:
+Header :282, Header.Hash :393, Commit :572, CommitSig :468,
 Commit.VoteSignBytes :637, BlockID :957 region), with the templated
-sign-bytes (``Commit.sign_bytes_parts``) that the tabled path reads."""
+sign-bytes (``Commit.sign_bytes_parts``) that the tabled path reads and
+the merkle roots ``Commit.hash`` and ``Header.hash``."""
 
 from __future__ import annotations
 
@@ -14,6 +16,10 @@ import numpy as np
 from tendermint_tpu_torch.codec import signbytes
 from tendermint_tpu_torch.codec.binary import Writer
 from tendermint_tpu_torch.codec.signbytes import PRECOMMIT_TYPE, splice_timestamps
+from tendermint_tpu_torch.crypto import merkle
+
+# Block protocol version (reference version/version.go BlockProtocol).
+BLOCK_PROTOCOL = 10
 
 # Widest signature of any registered key scheme in the JAX package (BLS
 # G2 = 96 bytes); bounds CommitSig.validate_basic exactly as there.
@@ -33,6 +39,13 @@ class PartSetHeader:
     def is_zero(self) -> bool:
         return self.total == 0 and len(self.hash) == 0
 
+    def validate_basic(self) -> Optional[str]:
+        if self.total < 0:
+            return "negative Total"
+        if len(self.hash) not in (0, 32):
+            return "wrong Hash size"
+        return None
+
     def encode(self) -> bytes:
         return Writer().write_u32(self.total).write_bytes(self.hash).bytes()
 
@@ -47,6 +60,17 @@ class BlockID:
 
     def is_zero(self) -> bool:
         return len(self.hash) == 0 and self.parts.is_zero()
+
+    def validate_basic(self) -> Optional[str]:
+        if len(self.hash) not in (0, 32):
+            return "wrong Hash"
+        err = self.parts.validate_basic()
+        if err:
+            return f"wrong PartsHeader: {err}"
+        return None
+
+    def encode(self) -> bytes:
+        return Writer().write_bytes(self.hash).write_bytes(self.parts.encode()).bytes()
 
     def key(self) -> bytes:
         """Map key for vote tallies (reference BlockID.Key)."""
@@ -101,6 +125,18 @@ class CommitSig:
                 return "signature too big"
         return None
 
+    def encode(self) -> bytes:
+        """The commit-hash leaf: flag, address, timestamp, signature (95
+        bytes for a signed ed25519 row, 11 for an absent one)."""
+        return (
+            Writer()
+            .write_u8(self.block_id_flag)
+            .write_bytes(self.validator_address)
+            .write_i64(self.timestamp_ns)
+            .write_bytes(self.signature)
+            .bytes()
+        )
+
 
 @dataclass
 class Commit:
@@ -112,6 +148,23 @@ class Commit:
     signatures: List[CommitSig]
 
     _parts_cache: Optional[tuple] = field(default=None, init=False, repr=False, compare=False)
+    _hash: Optional[bytes] = field(default=None, init=False, repr=False, compare=False)
+
+    def __deepcopy__(self, memo):
+        """A deep copy carries no memo (sign-bytes parts, hash): the one
+        reason to deep-copy a commit is to change it."""
+        import copy
+
+        return Commit(self.height, self.round, copy.deepcopy(self.block_id, memo),
+                      copy.deepcopy(self.signatures, memo))
+
+    def hash(self, device=None) -> bytes:
+        """The merkle root of the CommitSig encodings (the next header's
+        LastCommitHash), on `device` above the merkle threshold.
+        Memoised: a commit is not changed after it is assembled."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices([cs.encode() for cs in self.signatures], device=device)
+        return self._hash
 
     def vote_sign_bytes(self, chain_id: str, idx: int) -> bytes:
         """Canonical sign-bytes of signature `idx` (160 bytes)."""
@@ -189,3 +242,74 @@ class Commit:
 
     def __repr__(self) -> str:
         return f"Commit{{h={self.height} r={self.round} bid={self.block_id} n={len(self.signatures)}}}"
+
+
+@dataclass
+class Header:
+    """Block header; its hash is the merkle root of the 14 field
+    encodings (reference Header.Hash types/block.go:393)."""
+
+    chain_id: str = ""
+    height: int = 0
+    time_ns: int = 0
+    last_block_id: BlockID = field(default_factory=BlockID)
+    last_commit_hash: bytes = b""
+    data_hash: bytes = b""
+    validators_hash: bytes = b""
+    next_validators_hash: bytes = b""
+    consensus_hash: bytes = b""
+    app_hash: bytes = b""
+    last_results_hash: bytes = b""
+    evidence_hash: bytes = b""
+    proposer_address: bytes = b""
+    version_block: int = BLOCK_PROTOCOL
+    version_app: int = 0
+
+    def hash(self, device=None) -> Optional[bytes]:
+        """None while ValidatorsHash is unset (the header is not
+        complete), as in the reference. 14 leaves are below the merkle
+        threshold, so `device` is read only where a caller lowered it."""
+        if not self.validators_hash:
+            return None
+        fields = [
+            Writer().write_u64(self.version_block).write_u64(self.version_app).bytes(),
+            self.chain_id.encode("utf-8"),
+            Writer().write_u64(self.height).bytes(),
+            Writer().write_i64(self.time_ns).bytes(),
+            self.last_block_id.encode(),
+            self.last_commit_hash,
+            self.data_hash,
+            self.validators_hash,
+            self.next_validators_hash,
+            self.consensus_hash,
+            self.app_hash,
+            self.last_results_hash,
+            self.evidence_hash,
+            self.proposer_address,
+        ]
+        return merkle.hash_from_byte_slices(fields, device=device)
+
+    def validate_basic(self) -> Optional[str]:
+        if len(self.chain_id) > 50:
+            return "chainID is too long"
+        if self.height < 0:
+            return "negative Height"
+        if self.height == 0:
+            return "zero Height"
+        err = self.last_block_id.validate_basic()
+        if err:
+            return f"wrong LastBlockID: {err}"
+        for name, h in (
+            ("LastCommitHash", self.last_commit_hash),
+            ("DataHash", self.data_hash),
+            ("EvidenceHash", self.evidence_hash),
+            ("ValidatorsHash", self.validators_hash),
+            ("NextValidatorsHash", self.next_validators_hash),
+            ("ConsensusHash", self.consensus_hash),
+            ("LastResultsHash", self.last_results_hash),
+        ):
+            if len(h) not in (0, 32):
+                return f"wrong {name}"
+        if len(self.proposer_address) not in (0, 20):
+            return "invalid ProposerAddress length"
+        return None

@@ -1,9 +1,12 @@
-"""ValidatorSet: the validators of a height, and commit verification.
+"""ValidatorSet: the validators of a height, their merkle root, and
+commit verification.
 
 The port's copy of the JAX package's ``types/validator_set.py``:
 construction (sorted by address, proposer priorities as the reference
-initialises them), ``total_voting_power``, ``get_by_address``,
-``verify_commit`` and the light client's ``verify_commit_trusting``.
+initialises them), ``total_voting_power``, ``get_by_address``, ``hash``,
+``verify_commit``, the light client's ``verify_commit_trusting``, and
+``verify_commits_batched``, which checks many commits (of one set or of
+several) in one device call.
 
 Neither verifies signature by signature as the reference does
 (types/validator_set.go:641-668, :754): they pack every present
@@ -16,7 +19,8 @@ per-row timestamps) and, where the provider has none, the generic path
 (``verify_commit_batch``, with the voting-power tally fused into the
 last kernel). On the tabled path the tally is summed on the host.
 Not here yet: the signature cache, aggregated (BLS) commits and key
-types other than ed25519.
+types other than ed25519 (a set holding another key type raises when
+its commits are checked).
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from tendermint_tpu_torch.codec.signbytes import splice_timestamps
+from tendermint_tpu_torch.crypto import merkle
 from tendermint_tpu_torch.crypto.batch import BatchVerifier, default_provider
+from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
 from tendermint_tpu_torch.types.block import MAX_SIGNATURE_SIZE, BlockID, Commit
 from tendermint_tpu_torch.types.validator import Validator
 
@@ -71,6 +77,7 @@ class ValidatorSet:
         self._total_voting_power = self._sum_voting_power()
         self._arrays: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._dev_key: Optional[bytes] = None
+        self._hash: Optional[bytes] = None
         if vals:
             self._increment_proposer_priority()
 
@@ -82,6 +89,16 @@ class ValidatorSet:
         if i is None:
             return -1, None
         return i, self.validators[i]
+
+    def hash(self, device=None) -> bytes:
+        """The merkle root of the validators' (pubkey, power) encodings
+        (reference ValidatorSet.Hash, types/validator_set.go:307), on
+        `device` above the merkle threshold. Memoised: the port's sets
+        never change membership or power after construction, and
+        proposer priorities are not part of the hash."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices([v.hash_bytes() for v in self.validators], device=device)
+        return self._hash
 
     def _sum_voting_power(self) -> int:
         total = 0
@@ -117,8 +134,11 @@ class ValidatorSet:
     # -- commit verification -------------------------------------------------
 
     def _device_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(V, 32) uint8 pubkeys and (V,) int64 powers, built once."""
+        """(V, 32) uint8 pubkeys and (V,) int64 powers, built once.
+        TypeError for a set with a key that is not ed25519."""
         if self._arrays is None:
+            if not all(isinstance(v.pub_key, Ed25519PubKey) for v in self.validators):
+                raise TypeError("the port verifies ed25519 keys only")
             pk = np.frombuffer(b"".join(v.pub_key.bytes() for v in self.validators), dtype=np.uint8)
             powers = np.asarray([v.voting_power for v in self.validators], dtype=np.int64)
             self._arrays = (pk.reshape(len(self.validators), 32), powers)
@@ -200,6 +220,12 @@ class ValidatorSet:
         if block_id != commit.block_id:
             raise ErrInvalidCommit(f"wrong block ID: {block_id} vs {commit.block_id}")
 
+    def _check_commit_size(self, commit: Commit) -> None:
+        if len(self.validators) != len(commit.signatures):
+            raise ErrInvalidCommit(
+                f"wrong set size: {len(self.validators)} vs {len(commit.signatures)}"
+            )
+
     def verify_commit(
         self,
         chain_id: str,
@@ -217,10 +243,7 @@ class ValidatorSet:
         shared TorchBatchVerifier on `device` (the card unless "cpu" is
         asked for).
         """
-        if len(self.validators) != len(commit.signatures):
-            raise ErrInvalidCommit(
-                f"wrong set size: {len(self.validators)} vs {len(commit.signatures)}"
-            )
+        self._check_commit_size(commit)
         self._verify_commit_basic(commit, height, block_id)
         idxs, vals_idx, sigs, powers, counted, sig_ok, tpl = self._commit_batch_arrays(chain_id, commit)
         v = provider if provider is not None else default_provider(device)
@@ -325,3 +348,98 @@ class ValidatorSet:
         if talled > needed:
             return
         raise ErrNotEnoughVotingPower(f"have {talled}, need > {needed}")
+
+
+# -- many commits in one device call -------------------------------------------
+
+
+class CommitVerifySpec:
+    """One commit check inside a multi-commit batch: ``mode`` "full"
+    (``verify_commit``) or "trusting" (``verify_commit_trusting``, with
+    ``trust_level``)."""
+
+    __slots__ = ("valset", "chain_id", "block_id", "height", "commit", "mode", "trust_level")
+
+    def __init__(self, valset, chain_id, block_id, height, commit, mode="full", trust_level=None):
+        self.valset = valset
+        self.chain_id = chain_id
+        self.block_id = block_id
+        self.height = height
+        self.commit = commit
+        self.mode = mode
+        self.trust_level = trust_level
+
+
+def verify_commits_batched(
+    specs: Sequence[CommitVerifySpec],
+    provider: Optional[BatchVerifier] = None,
+    device=None,
+) -> List[Optional[Exception]]:
+    """Verify many commits (typically of many heights) in one device
+    call (the JAX package's ``verify_commits_batched``): one entry per
+    spec, None where it is accepted, else the exception the direct
+    method call would have raised. Each spec's host checks run first; a
+    spec that fails them adds no rows. Each spec's acceptance is then
+    replayed on its slice of the verdicts.
+
+    When every spec checks against one validator set (the light client's
+    sequential shape), the rows go to the provider's per-valset tabled
+    path in one call, with each spec's two sign-bytes templates stacked;
+    otherwise (or where the tabled path answers None) to the generic
+    ``verify_batch`` in one call. A signature that is not 64 bytes long
+    is rejected, as in ``verify_commit``."""
+    results: List[Optional[Exception]] = [None] * len(specs)
+    segments = []  # (spec index, idxs, vals_idx, powers, counted)
+    vals_parts, sig_parts, ok_parts, tpl_parts, tidx_parts, ts8_parts, pk_parts = [], [], [], [], [], [], []
+    for si, s in enumerate(specs):
+        try:
+            if s.mode == "trusting":
+                ValidatorSet._validate_trust_level(s.trust_level)
+            else:
+                s.valset._check_commit_size(s.commit)
+            s.valset._verify_commit_basic(s.commit, s.height, s.block_id)
+            idxs, vals_idx, sigs, powers, counted, sig_ok, tpl = s.valset._commit_batch_arrays(
+                s.chain_id, s.commit, by_address=(s.mode == "trusting"))
+        except Exception as e:  # the spec's verdict is the exception itself
+            results[si] = e
+            continue
+        segments.append((si, idxs, vals_idx, powers, counted))
+        vals_parts.append(vals_idx)
+        sig_parts.append(sigs)
+        ok_parts.append(sig_ok)
+        tidx_parts.append(tpl[1] + 2 * len(tpl_parts))  # into the stacked (2S, 160) templates
+        tpl_parts.append(tpl[0])
+        ts8_parts.append(tpl[2])
+        pk_parts.append(s.valset._device_arrays()[0][vals_idx])
+    if not segments:
+        return results
+    sigs = np.concatenate(sig_parts)
+    templates, tmpl_idx, ts8 = np.concatenate(tpl_parts), np.concatenate(tidx_parts), np.concatenate(ts8_parts)
+    v = provider if provider is not None else default_provider(device)
+    ok = None
+    key0, all_pk0 = specs[segments[0][0]].valset.batch_cache()
+    if sigs.shape[0] == 0:
+        ok = np.zeros(0, dtype=bool)
+    elif all(specs[seg[0]].valset.batch_cache()[0] == key0 for seg in segments[1:]):
+        all_idx = np.concatenate(vals_parts).astype(np.int32)
+        ok = v.verify_rows_cached_templated(key0, all_pk0, all_idx, templates, tmpl_idx, ts8, sigs)
+        if ok is None:
+            ok = v.verify_rows_cached(key0, all_pk0, all_idx, splice_timestamps(templates[tmpl_idx], ts8), sigs)
+    if ok is None:
+        ok = v.verify_batch(np.concatenate(pk_parts), splice_timestamps(templates[tmpl_idx], ts8), sigs)
+    ok = np.asarray(ok, dtype=bool) & np.concatenate(ok_parts)
+    off = 0
+    for si, idxs, vals_idx, powers, counted in segments:
+        s = specs[si]
+        n = len(idxs)
+        ok_slice = ok[off:off + n]
+        off += n
+        try:
+            if s.mode == "trusting":
+                s.valset._replay_commit_trusting(ok_slice, idxs, vals_idx, powers, counted, s.trust_level)
+            else:
+                talled = int(powers[ok_slice & counted].sum())
+                s.valset._replay_commit_full(s.commit, ok_slice, idxs, powers, counted, talled)
+        except Exception as e:  # the spec's verdict is the exception itself
+            results[si] = e
+    return results
