@@ -5,9 +5,10 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
 
 Phases (any failure raises and ends the run with a nonzero exit):
 
-1. Print the card's name and power limit (nvidia-smi), build the eight
-   kernels (six ed25519, two SHA-256) from tendermint_tpu_torch/csrc
-   (nvcc, sm_90a).
+1. Print the card's name and power limit (nvidia-smi), build the eleven
+   kernels (six ed25519, two SHA-256, three BLS12-381) from
+   tendermint_tpu_torch/csrc (nvcc, sm_90a), with each kernel's registers
+   and stack frame (-Xptxas -v).
 2. Hold each kernel against its plain PyTorch version, on the card, on
    one 1,024-row batch of honest and adversarial rows (s + L, flipped R,
    s and message bits, an undecodable key, a non-canonical A.y, small-order
@@ -49,7 +50,10 @@ Phases (any failure raises and ends the run with a nonzero exit):
    adversarial set (m in 2, 3, 5, 127-129, 1023-1025 leaves with the
    empty leaf, 54- and 55-byte leaves at the one/two-block edge and a
    40-block leaf; sha256 of 55- and 56-byte messages). Roots and every
-   proof's aunts against a hashlib recursion of simple_tree.go.
+   proof's aunts against a hashlib recursion of simple_tree.go. 1,023
+   leaves of 32 B and one of 1 MiB: the flat leaf buffer holds about the
+   leaves' bytes (the dense layout would pad all to 16,385 blocks), root
+   and aunts against hashlib with every level on the card.
    ValidatorSet.hash() and Commit.hash() at 10,000: the counts set to 0
    just before and read just after (one leaf launch, seven inner ones:
    widths 5,000 down to 79), CUDA events p50/p99 of 30 calls on fresh
@@ -67,13 +71,35 @@ Phases (any failure raises and ends the run with a nonzero exit):
    (adjacent) and of verify_chain over warm runs on fresh objects, and
    the validator-set hash's share of an adjacent step.
 
+8. BLS12-381 at 128 validators (keys from seeds, each proof of
+   possession made and registered through the port's
+   register_possession). The three BLS kernels against their plain
+   versions on the card, exactly at the byte seams, and against the
+   oracle: pairing_check_rows on 128 rows (a commit's rows, a wrong
+   message, a wrong key, another key's signature, pk = G1, duplicates;
+   verdicts, and the adversarial rows' reduced Fp12 values against the
+   oracle's cubed), pairing_value on 2 pairs (the oracle's cubed),
+   map_to_g2 on 128 pairs (u = 0, u = 1, an exceptional u), g1_aggregate
+   at 128, 4,096 and 10,000 points with ragged masks (empty, one point,
+   P + (-P), P + P, all, random). A per-signature commit (about 90 % for
+   the block, 5 % nil, 5 % absent) through ValidatorSet.verify_commit:
+   one map and one pairing launch a call; a corrupted signature, a
+   malformed 96-byte one and a 64-byte one, each with the JAX package's
+   class and message; CUDA events p50/p99 of warm calls on fresh commits
+   and the host split (decode, hash-to-field, map, pairing, the rest).
+   An AggregatedCommit over the same set: one aggregate, one map and one
+   pairing launch; a signer without a proof of possession, a non-BLS
+   signer, a wrong aggregate signature, too little power; times and
+   split. A mixed set of 64 ed25519 and 64 BLS validators: the tabled
+   ed25519 kernels and the BLS map and pairing in one verify_commit.
+
 Before the last line it prints one JSON object with a row per kernel
 (launches, max_abs_err, ms, plain_ms, bound_ms, ...), then the
 nvidia-smi line. In every row `ms` is the median time a call of
 back-to-back calls, the wrapper's host cost of a launch included, and
 `ms_device_only` the device alone (a sleep kernel holds the stream
 while the host enqueues the calls); the last line is {"ok": true, "device": {...}}. Every
-launch count in a row is read from a run of its path, the eight
+launch count in a row is read from a run of its path, the eleven
 kernels' alike.
 """
 
@@ -464,10 +490,10 @@ def sha256_leaf_ops(blocks: int, rows: int) -> int:
     return 2 * (blocks * SHA256_DATA_BLOCK_INSTR - rows * SHA256_FIRST_ROUND_FOLD)
 
 
-def sass_opcodes(kernel: str):
-    """Opcode counts of `kernel` in the built library's SASS, read with
-    the toolkit's cuobjdump (static: a loop's body once), or None where
-    the toolkit has no cuobjdump."""
+def sass_opcodes(kernel: str, binary=None):
+    """Opcode counts of `kernel` in the SASS of `binary` (the built
+    library by default), read with the toolkit's cuobjdump (static: a
+    loop's body once), or None where the toolkit has no cuobjdump."""
     import re
     from collections import Counter
     from pathlib import Path
@@ -477,7 +503,8 @@ def sass_opcodes(kernel: str):
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
     if not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True, text=True, timeout=300,
+    binary = _build.build() if binary is None else binary
+    sass = subprocess.run([str(tool), "-sass", str(binary)], capture_output=True, text=True, timeout=300,
                           check=True).stdout
     counts, inside = Counter(), False
     for line in sass.splitlines():
@@ -551,10 +578,9 @@ def host_tree(items):
 def merkle_seams(sha, hasher, items):
     """Both kernels of one tree against their plain versions, every level
     on the card: (leaf seam error, inner seam error, root)."""
-    blocks, counts = hasher.MerkleHasher().pack(items)
-    b, c = torch.from_numpy(blocks).cuda(), torch.from_numpy(counts).cuda()
-    st = sha.leaf_block_states(b, c)
-    e_leaf = seam_err(st, sha.leaf_blocks_plain(b, c))
+    b, o, c = (torch.from_numpy(a).cuda() for a in hasher.MerkleHasher().pack(items))
+    st = sha.leaf_block_states(b, c, o)
+    e_leaf = seam_err(st, sha.leaf_blocks_plain(b, c, o))
     e_inner, m = 0, len(items)
     while m > 1:
         nxt = sha.merkle_inner_level(st, m)
@@ -624,9 +650,9 @@ def root_split(sha, merkle, hasher, leaves_of, obj_of, reps: int = 10):
         t = time.perf_counter()
         leaves = leaves_of(obj)
         t1 = time.perf_counter()
-        blocks, counts = h.pack(leaves)
+        packed = h.pack(leaves)
         t2 = time.perf_counter()
-        tail = sha.state_to_digests(h.device_levels(blocks, counts)[-1].cpu().numpy())
+        tail = sha.state_to_digests(h.device_levels(*packed)[-1].cpu().numpy())
         t3 = time.perf_counter()
         top = hasher.host_levels([tail[i].tobytes() for i in range(tail.shape[0])])
         t4 = time.perf_counter()
@@ -680,11 +706,31 @@ def phase6(vs, commit, card):
                  f"sha256 of {length}-byte messages equals hashlib's")
         blocks = sha.pad(dev).contiguous()
         counts = torch.full((257,), blocks.shape[1], dtype=torch.int32, device=blocks.device)
-        adv_leaf = max(adv_leaf, seam_err(sha.leaf_block_states(blocks, counts), sha.leaf_blocks_plain(blocks, counts)))
+        flat = sha.dense_to_flat(blocks, counts)
+        adv_leaf = max(adv_leaf, seam_err(sha.leaf_block_states(*flat), sha.leaf_blocks_plain(*flat)))
     errs["sha256_leaf_blocks"]["adversarial"], errs["merkle_inner_level"]["adversarial"] = adv_leaf, adv_inner
     print(f"phase 6: adversarial trees m = {MERKLE_M} (empty, 54-, 55-byte and 40-block leaves), every level on "
           f"the card: seams identical to the plain versions (leaf {adv_leaf}, inner {adv_inner}), roots and aunts "
           f"= hashlib; sha256 of 55- and 56-byte messages = hashlib ({time.perf_counter() - t0:.1f} s)")
+    # one long leaf among short ones: the flat layout holds each leaf's own
+    # blocks (the dense one padded all 1,024 to 16,385 blocks: 1.07 GB)
+    t1 = time.perf_counter()
+    items = [rng.bytes(32) for _ in range(1023)] + [rng.bytes(1 << 20)]
+    blocks, offsets, counts = hasher.MerkleHasher().pack(items)
+    leaf_bytes = sum(map(len, items))
+    require(blocks.nbytes <= 1.1 * leaf_bytes, f"flat packing of 1,023 x 32 B + 1 MiB: {blocks.nbytes} B for "
+                                               f"{leaf_bytes} B of leaves")
+    sha.reset_launches()
+    saved = merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH
+    merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH = 2, 1
+    try:
+        check_proofs(merkle, items, "1,023 x 32 B + 1 MiB, every level on the card")
+    finally:
+        merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH = saved
+    require(sha.launches()["sha256_leaf_blocks"] > 0, "the long-leaf tree ran the leaf kernel")
+    print(f"  1,023 x 32 B + one 1 MiB leaf: {blocks.nbytes} B packed for {leaf_bytes} B of leaves "
+          f"({blocks.nbytes / leaf_bytes:.3f}x; dense: {len(items) * int(counts.max()) * 64} B), root and aunts = "
+          f"hashlib ({time.perf_counter() - t1:.1f} s)")
 
     trees = {
         "ValidatorSet.hash": (lambda: fresh_set(vs), lambda o: [v.hash_bytes() for v in o.validators],
@@ -709,14 +755,14 @@ def phase6(vs, commit, card):
         errs["sha256_leaf_blocks"][name], errs["merkle_inner_level"][name] = e_leaf, e_inner
         p50, p99, wall = events_and_wall(run, make, reps=30)
         split = root_split(sha, merkle, hasher, leaves_of, make)
-        blocks, counts = hasher.MerkleHasher().pack(leaves)
-        b, c = torch.from_numpy(blocks).cuda(), torch.from_numpy(counts).cuda()
+        blocks, offsets, counts = hasher.MerkleHasher().pack(leaves)
+        b, o, c = (torch.from_numpy(a).cuda() for a in (blocks, offsets, counts))
         widths = []
         w = len(leaves)
         while w > hasher.HOST_TAIL_WIDTH:
             widths.append(w)
             w = (w + 1) // 2
-        state = sha.leaf_block_states(b, c)
+        state = sha.leaf_block_states(b, c, o)
 
         def levels(f, st=state):
             for width in widths:
@@ -726,9 +772,9 @@ def phase6(vs, commit, card):
         out[name] = dict(
             launches=n_launch, p50=p50, p99=p99, wall=wall, split=split, rows=len(leaves), widths=widths,
             blocks=int(counts.sum()),
-            leaf_ms=device_ms(lambda: sha.leaf_block_states(b, c), reps=20),
-            leaf_call_ms=median_ms(lambda: sha.leaf_block_states(b, c), reps=20, repeats=5),
-            leaf_plain_ms=median_ms(lambda: sha.leaf_blocks_plain(b, c), reps=1, repeats=3),
+            leaf_ms=device_ms(lambda: sha.leaf_block_states(b, c, o), reps=20),
+            leaf_call_ms=median_ms(lambda: sha.leaf_block_states(b, c, o), reps=20, repeats=5),
+            leaf_plain_ms=median_ms(lambda: sha.leaf_blocks_plain(b, c, o), reps=1, repeats=3),
             inner_ms=device_ms(lambda: levels(sha.merkle_inner_level), reps=20),
             inner_call_ms=median_ms(lambda: levels(sha.merkle_inner_level), reps=20, repeats=5),
             inner_plain_ms=median_ms(lambda: levels(sha.inner_level_plain), reps=1, repeats=3),
@@ -754,7 +800,7 @@ def phase6(vs, commit, card):
         per = {}
         for tree, o in (("valset", vsh), ("commit", ch)):
             if name == "sha256_leaf_blocks":
-                io, ops = o["blocks"] * 64 + o["rows"] * (4 + 32), sha256_leaf_ops(o["blocks"], o["rows"])
+                io, ops = o["blocks"] * 64 + o["rows"] * (4 + 4 + 32), sha256_leaf_ops(o["blocks"], o["rows"])
             else:
                 io, ops = inner_bound(o["widths"])
             per[tree] = (io, ops)
@@ -878,29 +924,579 @@ def phase7(vs, by_addr, rng, card, kernels):
     c50, c99, cwall = events_and_wall(
         lambda a: lv.verify_chain(CHAIN, sh1, vs, [(a[0], a[1]), (a[2], a[3])], TRUSTING_PERIOD, **args),
         lambda: (fresh_sh(sh2), fresh_set(vs), fresh_sh(sh4), fresh_set(s2)), reps=10)
-    hash_ms, rest_ms = [], []
+    hash_ms, pk_ms, rest_ms = [], [], []
     for _ in range(10):
         fs, fh = fresh_set(vs), fresh_sh(sh2)
         torch.cuda.synchronize()
         t = time.perf_counter()
         fs.hash()
         t1 = time.perf_counter()
-        lv.verify(CHAIN, sh1, vs, fh, fs, TRUSTING_PERIOD, **args)  # the hash is memoised now
-        torch.cuda.synchronize()
+        fs.batch_cache()  # the set's (V, 32) pubkey matrix and its key
         t2 = time.perf_counter()
+        lv.verify(CHAIN, sh1, vs, fh, fs, TRUSTING_PERIOD, **args)  # the hash and matrix are memoised now
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
         hash_ms.append(1e3 * (t1 - t))
-        rest_ms.append(1e3 * (t2 - t1))
-    hm, rm = float(np.median(hash_ms)), float(np.median(rest_ms))
+        pk_ms.append(1e3 * (t2 - t1))
+        rest_ms.append(1e3 * (t3 - t2))
+    hm, pm, rm = float(np.median(hash_ms)), float(np.median(pk_ms)), float(np.median(rest_ms))
     print(f"  verify (adjacent) @{N_VALS}: 30 warm runs on fresh objects, CUDA events p50 {a50:.3f} ms p99 {a99:.3f} "
           f"ms, host clock p50 {awall:.3f} ms; verify_chain (h2 and h4, 3 commit checks over 2 sets): 10 runs, "
           f"p50 {c50:.3f} ms p99 {c99:.3f} ms, host clock p50 {cwall:.3f} ms ({card})")
     print(f"  split of an adjacent step (medians of 10, host clock): the untrusted set's hash {hm:.3f} ms, "
-          f"the rest {rm:.3f} ms: the hash {100 * hm / (hm + rm):.1f} % of the step")
+          f"its pubkey matrix {pm:.3f} ms, the rest {rm:.3f} ms: the hash {100 * hm / (hm + pm + rm):.1f} % of "
+          f"the step")
     for name, row in kernels.items():
         row["launches_light_verify_adjacent"] = adj[name]
         row["launches_light_verify_chain"] = chain[name]
     for name in ("sha256_leaf_blocks", "merkle_inner_level"):
         kernels[name]["launches"] = adj[name]
+
+
+# -- phase 8: BLS12-381 commits ------------------------------------------------
+
+N_BLS = 128
+N_AGG = (128, 4096, 10_000)
+# The bounds count the Fp multiplications the functions need, by
+# standard fast algorithms rather than the kernels' own formulas
+# (squarings as multiplications; additions and products by small
+# constants free): Karatsuba Fp2 (a product 3, a square 2); Fp6 6 Fp2
+# products, its square 2 products and 3 squares; Fp12 18 Fp2 products,
+# its square 12 (the complex method) and, once cyclotomic, 9 Fp2 squares
+# (Granger-Scott); one Miller loop shared by the two pairs, projective
+# doubling and mixed addition steps with their lines (3 m2 + 6 s2 + 4 m
+# and 11 m2 + 2 s2 + 4 m) and sparse line products (13 m2), as in Aranha
+# et al., Eurocrypt 2011; the final exponent's easy part and the x-chain
+# of its hard part (ops/bls12.py's final_exp_plain, with cyclotomic
+# squares); powers of Fp by the best sliding window (inversion by
+# Fermat, the square root and Legendre symbol by their exponents, an Fp2
+# root as two Fp powers); SvdW as RFC 9380's straight line; [H2] over its
+# NAF in Jacobian coordinates (a doubling 2 m2 + 5 s2, a mixed addition
+# 7 m2 + 4 s2) from an affine base; a G1 sum by complete mixed additions
+# (RCB15 algorithm 8: 11). What the kernels run instead is counted on the
+# plain version (fp_muls_per_row), which shares their formulas.
+FP_MUL_PROBE = r"""
+#include "fp381.cuh"
+using namespace bls;
+extern "C" __global__ void fp_mul_probe_1(const Fp* a, const Fp* b, Fp* r) {
+  Fp t;
+  fp_mul(t, a[0], b[0]);
+  r[0] = t;
+}
+extern "C" __global__ void fp_mul_probe_2(const Fp* a, const Fp* b, Fp* r) {
+  Fp t, u;
+  fp_mul(t, a[0], b[0]);
+  fp_mul(u, t, b[0]);
+  r[0] = u;
+}
+"""
+# Where the toolkit has no cuobjdump: a limb product as IMAD.WIDE and a
+# 64-bit carry add (IADD3, IADD3.X), 288 of them, and the m_i.
+FP381_MUL_INSTR_MODEL = 3 * (144 + 144) + 12
+
+
+def fp_mul_instructions():
+    """(instructions, opcode counts) of one Fp multiplication (fp381.cuh's
+    fp_mul: CIOS and its final subtraction) in sm_90a SASS: a probe
+    kernel of two chained products less one of one, both fully unrolled,
+    so the static count is what a product issues (NOPs aside); or
+    (FP381_MUL_INSTR_MODEL, None) where the toolkit has no cuobjdump."""
+    from pathlib import Path
+
+    from tendermint_tpu_torch.ops import _build
+
+    nvcc = Path(_build.nvcc_path())
+    if not nvcc.with_name("cuobjdump").exists():
+        return FP381_MUL_INSTR_MODEL, None
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "fp_mul_probe.cu"
+    src.write_text(FP_MUL_PROBE)
+    cubin = src.with_suffix(".cubin")
+    subprocess.run([str(nvcc), "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin",
+                    "-I", str(_build._CSRC), "-o", str(cubin), str(src)],
+                   capture_output=True, timeout=300, check=True)
+    one, two = (sass_opcodes(f"fp_mul_probe_{k}", cubin) for k in (1, 2))
+    diff = {op: two.get(op, 0) - one.get(op, 0) for op in set(one) | set(two) if op != "NOP"}
+    diff = {op: n for op, n in sorted(diff.items(), key=lambda kv: -kv[1]) if n}
+    return sum(diff.values()), diff
+
+
+def window_pow_muls(e: int) -> int:
+    """Fp multiplications of a^e by a left-to-right sliding window of the
+    best width: the squarings, the window products, the odd powers."""
+    bits = bin(e)[2:]
+    best = None
+    for w in range(1, 8):
+        i, windows = 0, 0
+        while i < len(bits):
+            if bits[i] == "0":
+                i += 1
+                continue
+            j = min(i + w, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            windows += 1
+            i = j
+        cost = len(bits) - 1 + windows - 1 + (2 ** (w - 1) if w > 1 else 0)
+        best = cost if best is None else min(best, cost)
+    return best
+
+
+def naf_digits(k: int) -> list:
+    out = []
+    while k:
+        d = (2 - k % 4) if k & 1 else 0
+        out.append(d)
+        k = (k - d) // 2
+    return out
+
+
+def bls_needed_fp_muls(ref) -> dict:
+    """Fp multiplications a row needs (the model above): the pairing
+    check, the map, and a G1 sum of k points as (per point, fixed)."""
+    m2, s2 = 3, 2
+    inv = window_pow_muls(ref.P - 2)
+    f2_inv = 2 * s2 + inv
+    f6_mul, f6_sqr = 6 * m2, 2 * m2 + 3 * s2
+    f6_inv = 3 * (s2 + m2) + 3 * m2 + f2_inv + 3 * m2
+    f12_mul, f12_sqr, cyc_sqr = 3 * f6_mul, 2 * f6_mul, 9 * s2
+    f12_inv = 2 * f6_sqr + f6_inv + 2 * f6_mul
+    frob_p, frob_p2 = 5 * m2, 5 * 2  # p^2's constants lie in Fp
+
+    def cyc_pow(e: int) -> int:
+        return (e.bit_length() - 1) * cyc_sqr + (bin(e).count("1") - 1) * f12_mul
+
+    x = -ref.X_PARAM
+    steps, adds = x.bit_length() - 1, bin(x).count("1") - 1
+    line_dbl, line_add, sparse = 3 * m2 + 6 * s2 + 4, 11 * m2 + 2 * s2 + 4, 13 * m2
+    miller = (steps - 1) * f12_sqr + 2 * steps * (line_dbl + sparse) + 2 * adds * (line_add + sparse)
+    easy = f12_inv + 2 * f12_mul + frob_p2
+    hard = 2 * cyc_pow(x + 1) + 3 * cyc_pow(x) + frob_p + frob_p2 + 5 * f12_mul + cyc_sqr
+    p = ref.P
+    f2_sqrt = 5 + window_pow_muls((p + 1) // 4) + window_pow_muls((p - 3) // 4)
+    f2_is_square = 2 + window_pow_muls((p - 1) // 2)
+    svdw = 10 * m2 + 6 * s2 + f2_inv + 2 * f2_is_square + f2_sqrt
+    g2_dbl, g2_madd = 2 * m2 + 5 * s2, 7 * m2 + 4 * s2
+    to_affine = f2_inv + s2 + 3 * m2
+    naf = naf_digits(ref.H2)
+    h2 = (len(naf) - 1) * g2_dbl + (sum(1 for d in naf if d) - 1) * g2_madd
+    return {"bls12_pairing_check": miller + easy + hard,
+            "bls12_map_to_g2": 2 * svdw + g2_madd + to_affine + h2 + to_affine,
+            "bls12_g1_aggregate": (11, inv + 2 - 11)}
+
+
+def fp_muls_per_row(stage) -> int:
+    """Fp multiplications (squarings included) one row costs in the
+    kernels' formulas, counted by running the plain version on one CPU
+    row: Karatsuba Fp2, schoolbook Fp6, Karatsuba Fp12 (its squares by
+    the general product), dense line products, two Miller loops,
+    complete additions, binary exponent walks."""
+    from tendermint_tpu_torch.ops import bls12 as bls
+
+    bls.FP_MUL_COUNT[0] = 0
+    stage()
+    return bls.FP_MUL_COUNT[0]
+
+
+def exceptional_u(ref):
+    """An Fp2 u with u^2 C1 = -1 or 1 (tv1 tv2 = 0: the SvdW map's inv0 case)."""
+    inv = ref.f2_inv(ref._C1)
+    for t in (ref.f2_neg(inv), inv):
+        r = ref.f2_sqrt(t)
+        if r is not None:
+            return r
+    raise RuntimeError("no exceptional u")
+
+
+def expect_error(fn, cls: str, message: str, what: str) -> None:
+    try:
+        fn()
+    except Exception as e:  # the verdict under test is the exception itself
+        require(type(e).__name__ == cls and str(e) == message, f"{what}: {type(e).__name__}: {e}")
+        print(f"  {what}: {cls} ({e})")
+        return
+    raise RuntimeError(f"{what} was accepted")
+
+
+def bls_kernel_seams(bls, ref, rng, vs, commit, card):
+    """The three BLS kernels against their plain versions on the card and
+    against the oracle: returns ({kernel: largest seam difference}, the
+    pairing rows' tensors)."""
+    from tendermint_tpu_torch.crypto.bls import decode_pubkey_point, decode_signature
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    errs = {}
+    # pairing_check_rows on 128 rows: the commit's rows (their H(m) by the
+    # oracle) and adversarial ones
+    rows = []
+    for i, cs in enumerate(commit.signatures):
+        if cs.absent_():
+            continue
+        pk = decode_pubkey_point(vs.validators[i].pub_key.bytes())
+        rows.append((pk, commit.vote_sign_bytes(CHAIN, i), decode_signature(cs.signature)))
+        if len(rows) == N_BLS - 8:
+            break
+    hms = [ref.hash_to_curve_g2(m, ref.DST_SIG) for _pk, m, _s in rows]
+    trip = [(pk, hm, sg) for (pk, _m, sg), hm in zip(rows, hms)]
+    want = [True] * len(trip)
+    adversarial = [
+        (trip[0][0], trip[1][1], trip[0][2], False),   # a wrong message
+        (trip[1][0], trip[0][1], trip[0][2], False),   # a wrong key
+        (trip[2][0], trip[2][1], trip[3][2], False),   # the signature of another key
+        (ref.G1_GEN, trip[4][1], trip[4][1], True),    # pk = G1 (sk = 1): the signature is H(m)
+        (ref.G1_GEN, trip[4][1], trip[5][1], False),
+        trip[0] + (True,), trip[0] + (True,),          # duplicate rows
+        (trip[6][0], trip[6][1], ref.g2_neg(trip[6][2]), False),
+    ]
+    trip += [a[:3] for a in adversarial]
+    want += [a[3] for a in adversarial]
+    pk = bls.g1_tensor([r[0] for r in trip], dev)
+    hm = bls.g2_tensor([r[1] for r in trip], dev)
+    sg = bls.g2_tensor([r[2] for r in trip], dev)
+    ok, value = bls.pairing_check_rows(pk, hm, sg)
+    pok, pvalue = bls.pairing_plain(pk, hm, sg)
+    errs["bls12_pairing_check"] = max(seam_err(ok, pok), seam_err(value, pvalue))
+    require(ok.tolist() == want, f"pairing verdicts: {ok.tolist()} vs {want}")
+    one = ref._f12_canon(ref.F12_ONE)
+    for j in range(len(trip) - 8, len(trip)):  # the adversarial rows' reduced values against the oracle, cubed
+        pk_j, hm_j, sg_j = trip[j]
+        f = ref.f12_mul(ref.miller_loop(hm_j, pk_j), ref.miller_loop(sg_j, ref.g1_neg(ref.G1_GEN)))
+        want_v = ref._f12_canon(ref.f12_pow(ref.final_exponentiation(f), 3))
+        require(bls.f12_value(value[j]) == want_v, f"row {j}: the reduced value is the oracle's cubed")
+    require(all(bls.f12_value(value[j]) == one for j in range(len(trip)) if want[j]), "valid rows reduce to 1")
+    # pairing_value on 2 pairs
+    pv = bls.pairing_value(bls.g1_tensor([trip[0][0], ref.G1_GEN], dev), bls.g2_tensor([trip[0][1], ref.G2_GEN], dev))
+    ppv = bls.pairing_plain(bls.g1_tensor([trip[0][0], ref.G1_GEN], dev), bls.g2_tensor([trip[0][1], ref.G2_GEN], dev))[1]
+    errs["bls12_pairing_check"] = max(errs["bls12_pairing_check"], seam_err(pv, ppv))
+    for j, (p_, q_) in enumerate(((trip[0][0], trip[0][1]), (ref.G1_GEN, ref.G2_GEN))):
+        require(bls.f12_value(pv[j]) == ref._f12_canon(ref.f12_pow(ref.pairing(p_, q_), 3)),
+                "pairing_value is the oracle's pairing cubed")
+    print(f"phase 8: pairing_check_rows on {len(trip)} rows ({sum(want)} valid; wrong message, wrong key, another "
+          f"key's signature, pk = G1, duplicates): verdicts as built, seams identical to the plain version, the "
+          f"adversarial rows' values = the oracle's cubed; pairing_value on 2 pairs = the oracle's cubed "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # map_to_g2 on 128 (u0, u1) pairs with u = 0, u = 1 and an exceptional u
+    t1 = time.perf_counter()
+    us = [ref.hash_to_field_fp2(rng.bytes(40), ref.DST_SIG, 2) for _ in range(N_BLS - 3)]
+    us += [[(0, 0), (1, 0)], [(1, 0), (0, 0)], [exceptional_u(ref), (0, 1)]]
+    u0 = bls.fp2_tensor([u[0] for u in us], dev)
+    u1 = bls.fp2_tensor([u[1] for u in us], dev)
+    q, qinf = bls.map_to_g2(u0, u1)
+    pq, pqinf = bls.map_plain(u0, u1)
+    errs["bls12_map_to_g2"] = max(seam_err(q, pq), seam_err(qinf, pqinf))
+    want_q = [ref.clear_cofactor_g2(ref.g2_add(ref.map_to_curve_svdw(u[0]), ref.map_to_curve_svdw(u[1]))) for u in us]
+    require(bls.g2_points(q, qinf) == want_q, "map_to_g2 = the oracle's clear_cofactor_g2(map(u0) + map(u1))")
+    print(f"  map_to_g2 on {len(us)} pairs (u = 0, u = 1, an exceptional u): = the oracle, seams identical to the "
+          f"plain version ({time.perf_counter() - t1:.1f} s)")
+    # g1_aggregate at 128, 4,096 and 10,000 points, pk_i = pk_{i-1} + G1
+    t1 = time.perf_counter()
+    base = rows[0][0]
+    table = [base]
+    for _ in range(N_AGG[-1] - 1):
+        table.append(ref.g1_add(table[-1], ref.G1_GEN))
+    errs["bls12_g1_aggregate"] = 0
+    agg_inputs = {}
+    for v in N_AGG:
+        pts = table[:v - 2] + [ref.g1_neg(table[1]), table[2]]  # -P and a second copy of a point
+        masks = np.zeros((6, v), dtype=bool)
+        masks[1, 5] = True                        # a single point
+        masks[2, [1, v - 2]] = True               # P + (-P)
+        masks[3, [2, v - 1]] = True               # P + P
+        masks[4, :] = True
+        masks[5] = rng.random(v) < 0.5            # ragged; row 0 stays empty: the identity
+        pt = bls.g1_tensor(pts, dev)
+        mk = torch.from_numpy(masks).to(dev)
+        out, inf = bls.g1_aggregate(pt, mk)
+        pout, pinf = bls.aggregate_plain(pt, mk)
+        errs["bls12_g1_aggregate"] = max(errs["bls12_g1_aggregate"], seam_err(out, pout), seam_err(inf, pinf))
+        got = bls.g1_points(out, inf)
+        # expected sums: table[i] = base + i G1, so a selection sums to
+        # |S| base + (sum of i) G1, the -P and duplicate entries aside
+        for r in range(6):
+            sel = np.flatnonzero(masks[r])
+            idx = [int(i) for i in sel if i < v - 2]
+            acc = ref.g1_add(ref.g1_mul(len(idx), base) if idx else None, ref.g1_mul(sum(idx), ref.G1_GEN) if sum(idx) else None)
+            if masks[r, v - 2]:
+                acc = ref.g1_add(acc, ref.g1_neg(table[1]))
+            if masks[r, v - 1]:
+                acc = ref.g1_add(acc, table[2])
+            require(got[r] == acc, f"g1_aggregate at {v}, mask row {r}: = the oracle")
+        require(got[0] is None and got[2] is None, "the empty mask and P + (-P) are the identity")
+        agg_inputs[v] = (pt, mk)
+    print(f"  g1_aggregate at V = {N_AGG} (empty mask, one point, P + (-P), P + P, all, ragged): = the oracle, seams "
+          f"identical to the plain version ({time.perf_counter() - t1:.1f} s)")
+    require(all(e == 0 for e in errs.values()), f"BLS kernels identical to their plain versions: {errs}")
+    return errs, (pk, hm, sg), agg_inputs
+
+
+def field_pairs(bls, ref, msgs):
+    """hash_to_field of each message on the host -> u0, u1 (N, 2, 48) on the card."""
+    us = [ref.hash_to_field_fp2(m, ref.DST_SIG, 2) for m in msgs]
+    return bls.fp2_tensor([u[0] for u in us], "cuda"), bls.fp2_tensor([u[1] for u in us], "cuda")
+
+
+def bls_split(provider, vs, commit, reps: int = 5):
+    """The host clock split of a per-signature BLS verify_commit: checks and
+    packing, host decoding, hash-to-field, the map, the pairing, the replay."""
+    from tendermint_tpu_torch.codec.signbytes import splice_timestamps
+    from tendermint_tpu_torch.ops import bls12 as bls
+    from tendermint_tpu_torch.ops import ref_bls12 as ref
+
+    parts = {"checks_packing": [], "decode": [], "hash_to_field": [], "map": [], "pairing": [], "replay": []}
+    for _ in range(reps):
+        c = fresh(commit)
+        t = time.perf_counter()
+        vs._check_commit_size(c)
+        vs._verify_commit_basic(c, HEIGHT, c.block_id)
+        idxs, vals_idx, _s, powers, counted, _ok, tpl = vs._commit_batch_arrays(CHAIN, c)
+        msgs = splice_timestamps(tpl[0][tpl[1]], tpl[2])
+        pkm = np.stack([np.frombuffer(vs.validators[int(v)].pub_key.bytes(), dtype=np.uint8) for v in vals_idx])
+        sgm = np.stack([np.frombuffer(c.signatures[i].signature, dtype=np.uint8) for i in idxs])
+        t1 = time.perf_counter()
+        rows = provider.decode_rows(pkm, msgs, sgm)
+        t2 = time.perf_counter()
+        u0, u1 = field_pairs(bls, ref, [r[2] for r in rows])
+        t3 = time.perf_counter()
+        hm, _inf = bls.map_to_g2(u0, u1)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        ok, _v = bls.pairing_check_rows(bls.g1_tensor([r[1] for r in rows], "cuda"), hm,
+                                        bls.g2_tensor([r[3] for r in rows], "cuda"))
+        ok = ok.cpu().numpy()
+        t5 = time.perf_counter()
+        vs._replay_commit_full(c, ok, idxs, powers, counted, int(powers[ok & counted].sum()))
+        t6 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t6 - t5)):
+            parts[key].append(1e3 * dt)
+    return {key: float(np.median(v)) for key, v in parts.items()}
+
+
+def phase8(card, kernels):
+    """BLS12-381 commits at 128 validators: the kernels' seams, the
+    per-signature and aggregated commits, a mixed set. Returns the three
+    BLS kernels' rows of the JSON line."""
+    from tendermint_tpu_torch import (AggregatedCommit, BLSPrivKey, Ed25519PrivKey, Validator, ValidatorSet,
+                                      aggregate_commit_votes, get_default_bls_provider)
+    from tendermint_tpu_torch.crypto.bls import decode_signature, has_possession, register_possession
+    from tendermint_tpu_torch.ops import bls12 as bls
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import ref_bls12 as ref
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+    from tendermint_tpu_torch.utils.bits import BitArray
+
+    rng = np.random.default_rng(SEED + 8)
+    t0 = time.perf_counter()
+    privs = [BLSPrivKey.from_secret(rng.bytes(32)) for _ in range(N_BLS)]
+    t1 = time.perf_counter()
+    for p in privs:  # the proofs of possession, checked on the host by the oracle as they register
+        require(register_possession(p.pub_key().bytes(), p.prove_possession()), "a proof of possession registers")
+    t2 = time.perf_counter()
+    powers = rng.integers(1, 1 << 40, N_BLS)
+    vs = ValidatorSet([Validator(p.pub_key(), int(w)) for p, w in zip(privs, powers)])
+    by_addr = {p.pub_key().address(): p for p in privs}
+    bid = BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32)))
+    commit = signed_commit(vs, by_addr, bid, HEIGHT, 1_760_000_300_000_000_000, rng)
+    t3 = time.perf_counter()
+    rows_present = [i for i, cs in enumerate(commit.signatures) if not cs.absent_()]
+    print(f"phase 8: {N_BLS} BLS validators: keys {t1 - t0:.1f} s, {N_BLS} proofs of possession made and registered "
+          f"{t2 - t1:.1f} s, the commit ({len(rows_present)} rows) signed {t3 - t2:.1f} s")
+    errs, pair_inputs, agg_inputs = bls_kernel_seams(bls, ref, rng, vs, commit, card)
+
+    # -- the per-signature commit through verify_commit
+    def launches_of(fn):
+        bls.reset_launches()
+        ed.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        return {**bls.launches(), **ed.launches()}
+
+    n_sig = launches_of(lambda: vs.verify_commit(CHAIN, bid, HEIGHT, fresh(commit)))
+    require(n_sig["bls12_map_to_g2"] == 1 and n_sig["bls12_pairing_check"] == 1 and n_sig["bls12_g1_aggregate"] == 0,
+            f"a per-signature BLS verify_commit: one map and one pairing launch: {n_sig}")
+    print(f"  per-signature verify_commit @{N_BLS} ({len(rows_present)} rows) passed: launches "
+          f"{ {k: v for k, v in n_sig.items() if k.startswith('bls')} }")
+    r0 = rows_present[0]
+    addr = commit.signatures[r0].validator_address.hex()
+    for what, sig in (("a corrupted signature before quorum", commit.signatures[r0].signature[:95]
+                       + bytes([commit.signatures[r0].signature[95] ^ 1])),
+                      ("a malformed 96-byte signature", bytes(96)),
+                      ("a 64-byte signature on a BLS row", commit.signatures[r0].signature[:64])):
+        bad = fresh(commit)
+        bad.signatures = list(bad.signatures)
+        bad.signatures[r0] = dataclasses.replace(commit.signatures[r0], signature=sig)
+        expect_error(lambda: vs.verify_commit(CHAIN, bid, HEIGHT, bad), "ErrInvalidCommitSignature",
+                     f"wrong signature #{r0} ({addr})", what)
+    s50, s99, swall = events_and_wall(lambda c: vs.verify_commit(CHAIN, bid, HEIGHT, c), lambda: fresh(commit),
+                                      reps=10)
+    provider = get_default_bls_provider()
+    ssplit = bls_split(provider, vs, commit)
+    print(f"  per-signature verify_commit: 10 warm runs on fresh commits, CUDA events p50 {s50:.3f} ms p99 "
+          f"{s99:.3f} ms, host clock p50 {swall:.3f} ms ({card})")
+    print("    host clock split (medians of 5): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ssplit.items()))
+
+    # -- the aggregated commit over the same set
+    t1 = time.perf_counter()
+    ts = 1_760_000_400_000_000_000
+    msg = AggregatedCommit(HEIGHT, 0, bid, ts, BitArray(N_BLS), bytes(96)).sign_bytes(CHAIN)
+    present = rng.random(N_BLS) < 0.9
+    agg = aggregate_commit_votes(CHAIN, HEIGHT, 0, bid, ts, N_BLS,
+                                 [by_addr[v.address].sign(msg) if present[i] else None
+                                  for i, v in enumerate(vs.validators)])
+    print(f"  AggregatedCommit of {int(present.sum())} signers built in {time.perf_counter() - t1:.1f} s "
+          f"({agg.wire_bytes()} B on the wire)")
+    n_agg = launches_of(lambda: vs.verify_commit(CHAIN, bid, HEIGHT, agg))
+    require(n_agg["bls12_g1_aggregate"] == 1 and n_agg["bls12_map_to_g2"] == 1 and n_agg["bls12_pairing_check"] == 1,
+            f"an aggregated verify_commit: one launch each of aggregate, map and pairing: {n_agg}")
+    print(f"  aggregated verify_commit passed: launches { {k: v for k, v in n_agg.items() if k.startswith('bls')} }")
+    stranger = BLSPrivKey.from_secret(rng.bytes(32))
+    vs_x = ValidatorSet(list(vs.validators) + [Validator(stranger.pub_key(), 1 << 30)])
+    ix = vs_x.get_by_address(stranger.pub_key().address())[0]
+    sx = BitArray(N_BLS + 1)
+    sx.set_index(ix, True)
+    expect_error(lambda: vs_x.verify_commit(CHAIN, bid, HEIGHT, AggregatedCommit(HEIGHT, 0, bid, ts, sx, agg.agg_sig)),
+                 "ErrInvalidCommit", f"aggregated commit flags validator {ix} without a verified proof-of-possession "
+                 "(rogue-key defense)", "a flagged signer without a proof of possession")
+    eds = [Ed25519PrivKey(rng.bytes(32)) for _ in range(N_BLS // 2)]
+    mixed = ValidatorSet([Validator(k.pub_key(), int(w)) for k, w in zip(eds + privs[: N_BLS // 2], powers)])
+    flag_ed = BitArray(N_BLS)
+    for i, v in enumerate(mixed.validators):
+        flag_ed.set_index(i, True)
+    expect_error(lambda: mixed.verify_commit(CHAIN, bid, HEIGHT, AggregatedCommit(HEIGHT, 0, bid, ts, flag_ed,
+                                                                                   agg.agg_sig)),
+                 "ErrInvalidCommit", "aggregated commit flags a validator without a BLS key",
+                 "a flagged non-BLS validator")
+    wrong = AggregatedCommit(HEIGHT, 0, bid, ts, agg.signers, commit.signatures[r0].signature)
+    expect_error(lambda: vs.verify_commit(CHAIN, bid, HEIGHT, wrong), "ErrInvalidCommitSignature",
+                 "aggregate signature does not verify against the signer set", "a wrong aggregate signature")
+    low = BitArray(N_BLS)
+    talled, needed = 0, vs.total_voting_power() * 2 // 3
+    for i, v in enumerate(vs.validators):
+        if talled + v.voting_power <= needed and present[i]:
+            low.set_index(i, True)
+            talled += v.voting_power
+    expect_error(lambda: vs.verify_commit(CHAIN, bid, HEIGHT, AggregatedCommit(HEIGHT, 0, bid, ts, low, agg.agg_sig)),
+                 "ErrNotEnoughVotingPower", f"have {talled}, need > {needed}", "too little power")
+    a50, a99, awall = events_and_wall(lambda c: vs.verify_commit(CHAIN, bid, HEIGHT, c),
+                                      lambda: AggregatedCommit.decode(agg.encode()), reps=20)
+    aparts = {"checks_bitmap_pop": [], "aggregate": [], "decode_sig": [], "hash_to_field": [], "map": [],
+              "pairing": []}
+    pk_table, _mask = vs.bls_cache()
+    table = [pk_table[i].tobytes() for i in range(N_BLS)]
+    for _ in range(5):
+        c = AggregatedCommit.decode(agg.encode())
+        t = time.perf_counter()
+        mask = c.signers.as_numpy()
+        require(all(has_possession(pk_table[i].tobytes()) for i in np.flatnonzero(mask)), "proofs registered")
+        m = c.sign_bytes(CHAIN)
+        t1 = time.perf_counter()
+        apk = provider.aggregate_pubkey(table, mask)
+        t2 = time.perf_counter()
+        spt = decode_signature(c.agg_sig)
+        t3 = time.perf_counter()
+        u0, u1 = field_pairs(bls, ref, [m])
+        t4 = time.perf_counter()
+        hm, _inf = bls.map_to_g2(u0, u1)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        okv, _v = bls.pairing_check_rows(bls.g1_tensor([apk], "cuda"), hm, bls.g2_tensor([spt], "cuda"))
+        require(bool(okv.cpu()[0]), "the aggregate verifies")
+        t6 = time.perf_counter()
+        for key, dt in zip(aparts, (t1 - t, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t6 - t5)):
+            aparts[key].append(1e3 * dt)
+    asplit = {k: float(np.median(v)) for k, v in aparts.items()}
+    print(f"  aggregated verify_commit: 20 warm runs on fresh copies, CUDA events p50 {a50:.3f} ms p99 {a99:.3f} ms, "
+          f"host clock p50 {awall:.3f} ms ({card})")
+    print("    host clock split (medians of 5): " + ", ".join(f"{k} {v:.3f} ms" for k, v in asplit.items()))
+
+    # -- a mixed set: 64 ed25519 and 64 BLS validators
+    by_mixed = {k.pub_key().address(): k for k in eds + privs[: N_BLS // 2]}
+    mcommit = signed_commit(mixed, by_mixed, bid, HEIGHT, 1_760_000_500_000_000_000, rng)
+    n_mix = launches_of(lambda: mixed.verify_commit(CHAIN, bid, HEIGHT, fresh(mcommit)))
+    require(n_mix["bls12_map_to_g2"] == 1 and n_mix["bls12_pairing_check"] == 1
+            and all(n_mix[k] > 0 for k in ("ed25519_prepare_tabled", "ed25519_scan_tabled", "ed25519_finish"))
+            and n_mix["ed25519_prepare"] == 0 and n_mix["ed25519_scan"] == 0,
+            f"a mixed set's verify_commit ran the tabled ed25519 kernels and the BLS map and pairing: {n_mix}")
+    ed_rows = [i for i, cs in enumerate(mcommit.signatures) if not cs.absent_() and len(cs.signature) == 64]
+    bls_rows = [i for i, cs in enumerate(mcommit.signatures) if not cs.absent_() and len(cs.signature) == 96]
+    for what, row in (("a corrupted ed25519 row", ed_rows[0]), ("a corrupted BLS row", bls_rows[0])):
+        bad = fresh(mcommit)
+        bad.signatures = list(bad.signatures)
+        cs = mcommit.signatures[row]
+        bad.signatures[row] = dataclasses.replace(cs, signature=bytes([cs.signature[0] ^ 4]) + cs.signature[1:])
+        before = sum(mixed.validators[i].voting_power for i, c in enumerate(mcommit.signatures[:row]) if c.for_block())
+        require(before <= mixed.total_voting_power() * 2 // 3, f"{what}: row {row} is read before quorum")
+        expect_error(lambda: mixed.verify_commit(CHAIN, bid, HEIGHT, bad), "ErrInvalidCommitSignature",
+                     f"wrong signature #{row} ({cs.validator_address.hex()})", f"mixed set, {what}")
+    m50, m99, mwall = events_and_wall(lambda c: mixed.verify_commit(CHAIN, bid, HEIGHT, c), lambda: fresh(mcommit),
+                                      reps=10)
+    print(f"  mixed set ({N_BLS // 2} ed25519, {N_BLS // 2} BLS) verify_commit passed: launches {n_mix}; 10 warm runs "
+          f"on fresh commits, "
+          f"CUDA events p50 {m50:.3f} ms p99 {m99:.3f} ms, host clock p50 {mwall:.3f} ms ({card})")
+
+    # -- the kernels' rows: times at the main path's shapes, bounds
+    n_rows = len([i for i in rows_present if len(commit.signatures[i].signature) == 96])
+    pk_t, hm_t, sg_t = (x[:n_rows].contiguous() for x in pair_inputs)
+    cpu = torch.device("cpu")
+    plain_muls = {
+        "bls12_pairing_check": fp_muls_per_row(lambda: bls.pairing_plain(pk_t[:1].to(cpu), hm_t[:1].to(cpu),
+                                                                         sg_t[:1].to(cpu))),
+    }
+    u0, u1 = field_pairs(bls, ref, [rng.bytes(40) for _ in range(n_rows)])
+    plain_muls["bls12_map_to_g2"] = fp_muls_per_row(lambda: bls.map_plain(u0[:1].to(cpu), u1[:1].to(cpu)))
+    # one batch row, every point selected: the aggregated commit's shape
+    plain_agg = {v: fp_muls_per_row(lambda: bls.aggregate_plain(agg_inputs[v][0].to(cpu), agg_inputs[v][1][4:5].to(cpu)))
+                 for v in N_AGG}
+    pts_v, mask1 = agg_inputs[N_AGG[0]][0], agg_inputs[N_AGG[0]][1][4:5].contiguous()
+    plain_muls["bls12_g1_aggregate"] = plain_agg[N_AGG[0]]
+    needed = bls_needed_fp_muls(ref)
+    per_point, fixed = needed.pop("bls12_g1_aggregate")
+    agg_muls = {v: per_point * int(agg_inputs[v][1][4].sum()) + fixed for v in N_AGG}
+    muls = {**needed, "bls12_g1_aggregate": agg_muls[N_AGG[0]]}
+    mul_instr, mul_opcodes = fp_mul_instructions()
+    ops_per_fp_mul = 2 * mul_instr  # each at the 32-bit integer rate, 2 operations (as SHA-256's)
+    print(f"  the bounds: an Fp multiplication {mul_instr} sm_90a instructions "
+          f"({'SASS of fp_mul: ' + str(mul_opcodes) if mul_opcodes else 'no cuobjdump: the model'}); Fp "
+          f"multiplications a row needed / run by the kernels' formulas: "
+          + ", ".join(f"{k} {muls[k]} / {plain_muls[k]}" for k in muls))
+    runs = {
+        "bls12_pairing_check": (lambda: bls.pairing_check_rows(pk_t, hm_t, sg_t),
+                                lambda: bls.pairing_plain(pk_t, hm_t, sg_t), n_rows, 5),
+        "bls12_map_to_g2": (lambda: bls.map_to_g2(u0, u1), lambda: bls.map_plain(u0, u1), n_rows, 5),
+        "bls12_g1_aggregate": (lambda: bls.g1_aggregate(pts_v, mask1), lambda: bls.aggregate_plain(pts_v, mask1),
+                               1, 50),
+    }
+    io = {"bls12_pairing_check": n_rows * (96 + 192 + 192) + n_rows * (576 + 1),
+          "bls12_map_to_g2": n_rows * (96 + 96) + n_rows * (192 + 1),
+          "bls12_g1_aggregate": N_AGG[0] * 97 + 96 + 1}
+    replaces = {"bls12_pairing_check": "tendermint_tpu/ops/bls12.py:979",
+                "bls12_map_to_g2": "tendermint_tpu/ops/bls12.py:842",
+                "bls12_g1_aggregate": "tendermint_tpu/ops/bls12.py:771"}
+    also = {"bls12_pairing_check": "tendermint_tpu/ops/bls12.py:994 (pairing_value, one pair a row)",
+            "bls12_map_to_g2": None, "bls12_g1_aggregate": None}
+    rows_out = {}
+    for name, (kern, plain, nrows, reps) in runs.items():
+        ops = nrows * muls[name] * ops_per_fp_mul
+        row = kernel_row(name, "bls12_kernels.cu", n_sig[name] if name != "bls12_g1_aggregate" else n_agg[name],
+                         errs[name], median_ms(kern, reps=reps, repeats=3), median_ms(plain, reps=1, repeats=2),
+                         io[name], ops, nrows, muls[name])
+        row.update(replaces=replaces[name], replaces_also=also[name], ms_device_only=device_ms(kern, reps=reps),
+                   launches_aggregated_commit=n_agg[name], launches_mixed_set=n_mix[name],
+                   ops_per_fp_mul=ops_per_fp_mul, fp_mul_sass=mul_opcodes, field_muls_per_row_formulas=plain_muls[name])
+        rows_out[name] = row
+    for v in N_AGG[1:]:
+        pv_, mv_ = agg_inputs[v]
+        m1 = mv_[4:5].contiguous()
+        rows_out["bls12_g1_aggregate"][f"ms_at_{v}"] = median_ms(lambda: bls.g1_aggregate(pv_, m1), reps=10, repeats=3)
+        rows_out["bls12_g1_aggregate"][f"ms_device_only_at_{v}"] = device_ms(lambda: bls.g1_aggregate(pv_, m1), reps=10)
+        rows_out["bls12_g1_aggregate"][f"bound_ms_at_{v}"] = 1e3 * agg_muls[v] * ops_per_fp_mul / INT32_MAD_OPS_PER_S
+    for k in kernels.values():
+        k["launches_bls_commit"] = n_sig.get(k["name"], 0)
+        k["launches_bls_mixed_set"] = n_mix.get(k["name"], 0)
+    rows_out["bls12_pairing_check"]["verify_commit_ms"] = {"per_signature": [s50, s99, swall],
+                                                           "aggregated": [a50, a99, awall], "mixed": [m50, m99, mwall]}
+    rows_out["bls12_pairing_check"]["host_split_ms"] = {"per_signature": ssplit, "aggregated": asplit}
+    return rows_out
 
 
 def main() -> int:
@@ -921,7 +1517,8 @@ def main() -> int:
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     lib_path = _build.build()
-    print(f"phase 1: built {lib_path.name} (ed25519 and SHA-256 kernels) in {time.perf_counter() - t0:.1f} s")
+    print(f"phase 1: built {lib_path.name} (ed25519, SHA-256 and BLS12-381 kernels) in "
+          f"{time.perf_counter() - t0:.1f} s")
     for line in _build.ptxas_log().splitlines():
         if "registers" in line or "stack frame" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -1244,6 +1841,7 @@ def main() -> int:
     # -- phases 6 and 7: merkle roots and the light client ---------------------
     kernels.update(phase6(vs, commit, card))
     phase7(vs, by_addr, rng, card, kernels)
+    kernels.update(phase8(card, kernels))
     for k in kernels.values():
         muls = "" if k["field_muls_per_row"] is None else f", {k['field_muls_per_row']} field muls/row"
         print(f"  {k['name']}: {k['ms']:.4f} ms ({k['ms_device_only']:.4f} on the device alone; plain "

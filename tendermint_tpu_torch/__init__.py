@@ -11,13 +11,21 @@ generic batched path for providers without tables (three CUDA kernels;
 with many commits in one device call (``verify_commits_batched``); and
 the merkle roots ``ValidatorSet.hash`` and ``Commit.hash`` through two
 SHA-256 CUDA kernels (``ops/sha256.py``, ``models/hasher.py``,
-``crypto/merkle.py``). The package imports torch, numpy and the
-standard library, never jax and nothing of tendermint_tpu. Entry points
-run on the card unless the caller passes device="cpu".
+``crypto/merkle.py``); and BLS12-381 validators: per-signature BLS
+commits and ``AggregatedCommit``s (one aggregate signature and a signer
+bitmap) through ``ValidatorSet.verify_commit``, on three CUDA kernels,
+the pairing check, the hash-to-G2 map and the G1 aggregate
+(``ops/bls12.py``, ``models/bls.py``, ``crypto/bls.py``), in sets of BLS
+keys or of BLS and ed25519 keys together. The package imports torch,
+numpy and the standard library, never jax and nothing of
+tendermint_tpu. Entry points run on the card unless the caller passes
+device="cpu".
 """
 
 from tendermint_tpu_torch.crypto.batch import BatchVerifier, TorchBatchVerifier, default_provider
+from tendermint_tpu_torch.crypto.bls import BLSBatchVerifier, BLSPrivKey, BLSPubKey, get_default_bls_provider
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey, Ed25519PubKey
+from tendermint_tpu_torch.models.bls import BLSEngine
 from tendermint_tpu_torch.models.hasher import MerkleHasher
 from tendermint_tpu_torch.models.verifier import VerifierModel
 from tendermint_tpu_torch.ops.ed25519 import (
@@ -28,6 +36,7 @@ from tendermint_tpu_torch.ops.ed25519 import (
     verify_stage_scan,
     verify_stage_scan_tabled,
 )
+from tendermint_tpu_torch.types.aggregate import AggregatedCommit, aggregate_commit_votes
 from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, Header, PartSetHeader
 from tendermint_tpu_torch.types.validator import Validator
 from tendermint_tpu_torch.types.validator_set import (
@@ -41,6 +50,11 @@ from tendermint_tpu_torch.types.validator_set import (
 from tendermint_tpu_torch.utils.device import resolve_device
 
 __all__ = [
+    "AggregatedCommit",
+    "BLSBatchVerifier",
+    "BLSEngine",
+    "BLSPrivKey",
+    "BLSPubKey",
     "BatchVerifier",
     "BlockID",
     "Commit",
@@ -58,8 +72,10 @@ __all__ = [
     "Validator",
     "ValidatorSet",
     "VerifierModel",
+    "aggregate_commit_votes",
     "build_valset_tables",
     "default_provider",
+    "get_default_bls_provider",
     "resolve_device",
     "verify_stage_finish",
     "verify_stage_prepare",

@@ -1,4 +1,4 @@
-"""Ed25519 keys on the host, in pure Python.
+"""Ed25519 keys on the host, in pure Python, and the pubkey registry.
 
 The port's counterpart of the JAX package's ``crypto/keys.py``, which
 signs and verifies through the ``cryptography`` package (OpenSSL). The
@@ -6,11 +6,17 @@ machine with the card has no such package, so here both go through the
 port's copy of the pure-Python oracle (``ops/ref_ed25519.py``, hashlib
 only), whose acceptance is Go x/crypto's. Host verification is the slow
 path; batches go through ``crypto/batch.py``.
+
+The registry (``register_pubkey_type``, ``encode_pubkey``,
+``decode_pubkey`` with its typed errors) is the JAX package's; the port
+registers ed25519 here and bls12-381 in ``crypto/bls.py``.
 """
 
 from __future__ import annotations
 
-from tendermint_tpu_torch.codec.binary import Writer
+import hashlib
+
+from tendermint_tpu_torch.codec.binary import Reader, Writer
 from tendermint_tpu_torch.crypto.hash import address_hash
 from tendermint_tpu_torch.ops import ref_ed25519 as ref
 
@@ -21,6 +27,7 @@ ED25519_SIGNATURE_SIZE = 64
 
 
 class Ed25519PubKey:
+    type_name = ED25519_TYPE
     __slots__ = ("_raw",)
 
     def __init__(self, raw: bytes):
@@ -48,6 +55,7 @@ class Ed25519PubKey:
 
 
 class Ed25519PrivKey:
+    type_name = ED25519_TYPE
     __slots__ = ("_seed", "_pub")
 
     def __init__(self, raw: bytes):
@@ -61,6 +69,12 @@ class Ed25519PrivKey:
         self._seed = bytes(seed)
         self._pub = Ed25519PubKey(ref.pubkey_from_seed(self._seed))
 
+    @classmethod
+    def from_secret(cls, secret: bytes) -> "Ed25519PrivKey":
+        """Deterministic key: the SHA-256 of `secret` as the seed (the
+        JAX package's, after the reference's GenPrivKeyFromSecret)."""
+        return cls(hashlib.sha256(secret).digest())
+
     def sign(self, msg: bytes) -> bytes:
         return ref.sign(self._seed, msg)
 
@@ -71,8 +85,55 @@ class Ed25519PrivKey:
         return "PrivKeyEd25519{…}"
 
 
-def encode_pubkey(pk: Ed25519PubKey) -> bytes:
-    """The key registry's wire encoding: the type name, then the key
-    bytes (the JAX package's ``crypto/keys.py`` encode_pubkey). The port
-    has one key type."""
-    return Writer().write_str(ED25519_TYPE).write_bytes(pk.bytes()).bytes()
+class ErrUnknownPubKeyType(ValueError):
+    """decode_pubkey met a type name no scheme registered."""
+
+
+class ErrMalformedPubKey(ValueError):
+    """decode_pubkey could not frame the payload (truncated or trailing
+    bytes, or a payload the scheme's constructor rejects)."""
+
+
+_PUBKEY_TYPES = {}
+
+
+def register_pubkey_type(type_name: str, ctor) -> None:
+    _PUBKEY_TYPES[type_name] = ctor
+
+
+def registered_pubkey_types() -> tuple:
+    """The registered type names, in registration order."""
+    return tuple(_PUBKEY_TYPES)
+
+
+register_pubkey_type(ED25519_TYPE, Ed25519PubKey)
+
+
+def encode_pubkey(pk) -> bytes:
+    """The registry's wire encoding: the type name, then the key bytes."""
+    return Writer().write_str(pk.type_name).write_bytes(pk.bytes()).bytes()
+
+
+def decode_pubkey(data: bytes):
+    """The inverse of encode_pubkey: ErrUnknownPubKeyType for a type name
+    nothing registered, ErrMalformedPubKey for truncated or trailing bytes
+    or a payload the type rejects (both are ValueErrors)."""
+    r = Reader(data)
+    try:
+        type_name = r.read_str()
+        raw = r.read_bytes()
+        r.expect_done()
+    except Exception as e:
+        raise ErrMalformedPubKey(f"malformed pubkey encoding: {e!r}") from e
+    ctor = _PUBKEY_TYPES.get(type_name)
+    if ctor is None:
+        raise ErrUnknownPubKeyType(f"unknown pubkey type {type_name!r}")
+    try:
+        return ctor(raw)
+    except Exception as e:
+        raise ErrMalformedPubKey(f"invalid {type_name} pubkey payload: {e!r}") from e
+
+
+def is_batch_ed25519(pub_key) -> bool:
+    """True for a key the ed25519 kernels take."""
+    return isinstance(pub_key, Ed25519PubKey)

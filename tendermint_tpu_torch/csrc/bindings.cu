@@ -1,4 +1,4 @@
-// Plain C entry points of the ed25519 and SHA-256 kernels, loaded with ctypes by
+// Plain C entry points of the ed25519, SHA-256 and BLS12-381 kernels, loaded with ctypes by
 // ops/_build.py. Each returns the cudaError_t of its launch (0 = launched);
 // the Python wrapper raises on anything else. Pointers are device
 // pointers from torch tensors, `stream` is PyTorch's current stream.
@@ -20,8 +20,13 @@ cudaError_t launch_prepare_tabled(const uint8_t*, const int32_t*, int, const uin
                                   uint8_t*, cudaStream_t);
 cudaError_t launch_scan_tabled(const int8_t*, const int8_t*, const int32_t*, const uint8_t*, const int32_t*, int,
                                int, int32_t*, uint8_t*, cudaStream_t);
-cudaError_t launch_sha256_leaf_blocks(const uint8_t*, const int32_t*, int, int, uint32_t*, cudaStream_t);
+cudaError_t launch_sha256_leaf_blocks(const uint8_t*, const int32_t*, const int32_t*, int, int, uint32_t*, cudaStream_t);
 cudaError_t launch_merkle_inner_level(const uint32_t*, int, int, uint32_t*, cudaStream_t);
+cudaError_t set_bls_constants(const void* host, size_t bytes);
+cudaError_t launch_bls12_pairing_check(const uint8_t*, const uint8_t*, const uint8_t*, int, int, uint8_t*, uint8_t*,
+                                       cudaStream_t);
+cudaError_t launch_bls12_map_to_g2(const uint8_t*, const uint8_t*, int, uint8_t*, uint8_t*, cudaStream_t);
+cudaError_t launch_bls12_g1_aggregate(const uint8_t*, const uint8_t*, int, int, uint8_t*, uint8_t*, cudaStream_t);
 }  // namespace tmk
 
 extern "C" {
@@ -84,13 +89,37 @@ int tm_ed25519_scan_tabled(const void* sd8, const void* kd, const void* tables, 
                                      (uint8_t*)a_ok, (cudaStream_t)stream);
 }
 
-int tm_sha256_leaf_blocks(const void* blocks, const void* counts, int n, int n_blocks, void* state, void* stream) {
-  return (int)tmk::launch_sha256_leaf_blocks((const uint8_t*)blocks, (const int32_t*)counts, n, n_blocks,
-                                            (uint32_t*)state, (cudaStream_t)stream);
+int tm_sha256_leaf_blocks(const void* blocks, const void* offsets, const void* counts, int n, int total, void* state,
+                          void* stream) {
+  return (int)tmk::launch_sha256_leaf_blocks((const uint8_t*)blocks, (const int32_t*)offsets, (const int32_t*)counts, n,
+                                            total, (uint32_t*)state, (cudaStream_t)stream);
 }
 
 int tm_merkle_inner_level(const void* level, int c, int m, void* out, void* stream) {
   return (int)tmk::launch_merkle_inner_level((const uint32_t*)level, c, m, (uint32_t*)out, (cudaStream_t)stream);
+}
+
+// The BLS12-381 constants struct (csrc/fp381.cuh), packed by ops/bls12.py.
+int tm_set_bls_constants(int device, const void* host, size_t bytes) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)tmk::set_bls_constants(host, bytes);
+}
+
+int tm_bls12_pairing_check(const void* pk, const void* hm, const void* sig, int n, int pairs, void* value, void* ok,
+                           void* stream) {
+  return (int)tmk::launch_bls12_pairing_check((const uint8_t*)pk, (const uint8_t*)hm, (const uint8_t*)sig, n, pairs,
+                                             (uint8_t*)value, (uint8_t*)ok, (cudaStream_t)stream);
+}
+
+int tm_bls12_map_to_g2(const void* u0, const void* u1, int n, void* q, void* inf, void* stream) {
+  return (int)tmk::launch_bls12_map_to_g2((const uint8_t*)u0, (const uint8_t*)u1, n, (uint8_t*)q, (uint8_t*)inf,
+                                         (cudaStream_t)stream);
+}
+
+int tm_bls12_g1_aggregate(const void* points, const void* mask, int b, int v, void* out, void* inf, void* stream) {
+  return (int)tmk::launch_bls12_g1_aggregate((const uint8_t*)points, (const uint8_t*)mask, b, v, (uint8_t*)out,
+                                            (uint8_t*)inf, (cudaStream_t)stream);
 }
 
 }  // extern "C"

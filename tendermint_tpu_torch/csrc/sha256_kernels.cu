@@ -10,7 +10,10 @@
 // each function into one compression per jitted graph because XLA:CPU
 // collapses past that (ops/sha256.py:8-19); on the card one kernel per
 // function is the natural form: a leaf of any number of blocks, or both
-// blocks of an inner node, is a loop inside one thread. The (8, N) state
+// blocks of an inner node, is a loop inside one thread. The leaves come
+// as one flat buffer of their blocks with a block offset a row, so a tree
+// with one long leaf uploads its bytes and not every leaf padded to the
+// longest (the JAX package's dense (N, B, 64) layout). The (8, N) state
 // seam is the JAX package's: word k of consecutive rows is contiguous,
 // so a warp's stores of one word coalesce.
 //
@@ -35,21 +38,23 @@ constexpr int kShaBlock = 128;
 
 static inline int sha_grid(int n) { return (n + kShaBlock - 1) / kShaBlock; }
 
-// blocks (N, n_blocks, 64) u8, each row a leaf pre-padded by the host
-// (0x00 prefix, 0x80, bit length), counts (N,) i32 -> state (8, N) u32.
-// Row r compresses its first counts[r] blocks (clamped to [0, n_blocks]),
-// so rows of different lengths share a launch. The rows must start
-// 16-byte aligned (the wrapper checks the base; rows are 64-byte
-// multiples): each block is read as four 16-byte loads and byte-swapped
-// into big-endian words.
+// Leaves pre-padded by the host (0x00 prefix, 0x80, bit length) as
+// 64-byte blocks, counts (N,) i32 -> state (8, N) u32. Row r compresses
+// counts[r] blocks from block offsets[r] of the flat (total, 64) buffer,
+// clamped to the buffer, so rows of different lengths share a launch and
+// take only their own blocks. The buffer must start 16-byte aligned (the
+// wrapper checks; blocks are 64-byte multiples): each block is read as
+// four 16-byte loads and byte-swapped into big-endian words.
 __global__ void __launch_bounds__(kShaBlock) sha256_leaf_blocks(
-    const uint8_t* __restrict__ blocks, const int32_t* __restrict__ counts, int n, int n_blocks,
-    uint32_t* __restrict__ state) {
+    const uint8_t* __restrict__ blocks, const int32_t* __restrict__ offsets, const int32_t* __restrict__ counts,
+    int n, int total, uint32_t* __restrict__ state) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
+  const int start = offsets[row];
+  const int limit = start >= 0 && start <= total ? total - start : 0;
   int count = counts[row];
-  count = count < 0 ? 0 : (count > n_blocks ? n_blocks : count);
-  const uint4* p = reinterpret_cast<const uint4*>(blocks + (size_t)row * n_blocks * 64);
+  count = count < 0 ? 0 : (count > limit ? limit : count);
+  const uint4* p = reinterpret_cast<const uint4*>(blocks + (size_t)(count ? start : 0) * 64);
   uint32_t st[8];
   sha256_init(st);
   for (int b = 0; b < count; ++b) {
@@ -109,9 +114,9 @@ __global__ void __launch_bounds__(kShaBlock) merkle_inner_level(
   for (int k = 0; k < 8; ++k) out[(size_t)k * out_c + i] = st[k];
 }
 
-cudaError_t launch_sha256_leaf_blocks(const uint8_t* blocks, const int32_t* counts, int n, int n_blocks,
-                                      uint32_t* state, cudaStream_t stream) {
-  sha256_leaf_blocks<<<sha_grid(n), kShaBlock, 0, stream>>>(blocks, counts, n, n_blocks, state);
+cudaError_t launch_sha256_leaf_blocks(const uint8_t* blocks, const int32_t* offsets, const int32_t* counts, int n,
+                                      int total, uint32_t* state, cudaStream_t stream) {
+  sha256_leaf_blocks<<<sha_grid(n), kShaBlock, 0, stream>>>(blocks, offsets, counts, n, total, state);
   return cudaGetLastError();
 }
 

@@ -3,7 +3,9 @@ through the SHA-256 kernels on one device.
 
 Counterpart of the JAX package's ``models/hasher.py``. Every leaf is
 hashed in one launch of ``sha256_leaf_blocks`` (leaves of different
-block counts together), then each inner level in one launch of
+block counts together, packed one after another into a flat buffer of
+their own blocks, so one long leaf does not pad the others to its
+length), then each inner level in one launch of
 ``merkle_inner_level``, while the level is wider than
 ``HOST_TAIL_WIDTH``; ``hashlib`` finishes the narrow top, where a
 launch costs more than the few hashes it would do. Pairing adjacent
@@ -62,21 +64,20 @@ class MerkleHasher:
     def __init__(self, device=None):
         self.device = resolve_device(device)
 
-    def pack(self, items: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
-        """Leaves -> (blocks (N, B, 64) uint8, counts (N,) int32), each
-        row the 0x00 prefix, the leaf and its padding."""
-        n_blocks = sha256.leaf_blocks_needed(max((len(x) for x in items), default=0))
-        return sha256.pack_leaf_blocks(items, len(items), n_blocks)
+    def pack(self, items: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Leaves -> (blocks (T, 64) uint8, offsets (N,) int32, counts
+        (N,) int32): each leaf's 0x00 prefix, bytes and padding in its own
+        blocks (``sha256.pack_leaves``)."""
+        return sha256.pack_leaves(items)
 
-    def device_levels(self, blocks: np.ndarray, counts: np.ndarray) -> List[torch.Tensor]:
+    def device_levels(self, blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray) -> List[torch.Tensor]:
         """Upload packed leaves and hash them: levels[l] the (8, width)
         int32 states of level l on the device, down to the first width
         <= HOST_TAIL_WIDTH (or one node)."""
-        b = torch.from_numpy(blocks)
-        c = torch.from_numpy(counts)
+        b, o, c = (torch.from_numpy(a) for a in (blocks, offsets, counts))
         if self.device.type == "cuda":
-            b, c = b.to(self.device), c.to(self.device)
-        levels = [sha256.leaf_block_states(b, c)]
+            b, o, c = b.to(self.device), o.to(self.device), c.to(self.device)
+        levels = [sha256.leaf_block_states(b, c, o)]
         while levels[-1].shape[1] > max(HOST_TAIL_WIDTH, 1):
             levels.append(sha256.merkle_inner_level(levels[-1], levels[-1].shape[1]))
         return levels

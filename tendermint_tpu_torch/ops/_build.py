@@ -1,5 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/``): ed25519
-and SHA-256.
+"""Build and load the hand-written CUDA kernels (``csrc/``): ed25519,
+SHA-256 and BLS12-381.
 
 The kernels are compiled at first use on the machine with the card, with
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the repo root
@@ -14,8 +14,9 @@ After loading, the curve constants and the [1..8]B table (from the
 pure-Python oracle) and SHA-512's round constants are copied into the
 kernels' ``__constant__`` memory, and the tabled scan's 8-bit base comb
 (491,520 B, too large for ``__constant__``) into a ``__device__`` array,
-once per device. SHA-256's round constants are compiled in
-(``sha256.cuh``).
+once per device, with the BLS12-381 field and curve constants
+(``ops/bls12.py`` constants_blob, from the pure-Python oracle). SHA-256's
+round constants are compiled in (``sha256.cuh``).
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("ed25519_kernels.cu", "ed25519_tabled.cu", "sha256_kernels.cu", "bindings.cu")
-HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "sha512.cuh", "sha256.cuh")
+SOURCES = ("ed25519_kernels.cu", "ed25519_tabled.cu", "sha256_kernels.cu", "bls12_kernels.cu", "bindings.cu")
+HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "sha512.cuh", "sha256.cuh", "fp381.cuh", "bls12_curve.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -117,11 +118,17 @@ def _declare(lib) -> None:
     lib.tm_ed25519_build_tables.argtypes = [vp, i32, vp, vp, vp, vp]
     lib.tm_ed25519_prepare_tabled.argtypes = [vp, vp, i32, vp, i32, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, vp]
     lib.tm_ed25519_scan_tabled.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp, vp, vp]
-    lib.tm_sha256_leaf_blocks.argtypes = [vp, vp, i32, i32, vp, vp]
+    lib.tm_sha256_leaf_blocks.argtypes = [vp, vp, vp, i32, i32, vp, vp]
     lib.tm_merkle_inner_level.argtypes = [vp, i32, i32, vp, vp]
+    lib.tm_set_bls_constants.argtypes = [i32, vp, sz]
+    lib.tm_bls12_pairing_check.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp]
+    lib.tm_bls12_map_to_g2.argtypes = [vp, vp, i32, vp, vp, vp]
+    lib.tm_bls12_g1_aggregate.argtypes = [vp, vp, i32, i32, vp, vp, vp]
     for fn in (lib.tm_set_constants, lib.tm_ed25519_prepare, lib.tm_ed25519_scan, lib.tm_ed25519_finish,
                lib.tm_set_comb, lib.tm_ed25519_build_tables, lib.tm_ed25519_prepare_tabled,
-               lib.tm_ed25519_scan_tabled, lib.tm_sha256_leaf_blocks, lib.tm_merkle_inner_level):
+               lib.tm_ed25519_scan_tabled, lib.tm_sha256_leaf_blocks, lib.tm_merkle_inner_level,
+               lib.tm_set_bls_constants, lib.tm_bls12_pairing_check, lib.tm_bls12_map_to_g2,
+               lib.tm_bls12_g1_aggregate):
         fn.restype = i32
 
 
@@ -165,5 +172,9 @@ def library(device_index: int):
             check(_lib, _lib.tm_set_constants(device_index, blob, len(blob)), "constants upload")
             blob = comb_blob()
             check(_lib, _lib.tm_set_comb(device_index, blob, len(blob)), "base comb upload")
+            from tendermint_tpu_torch.ops import bls12
+
+            blob = bls12.constants_blob()
+            check(_lib, _lib.tm_set_bls_constants(device_index, blob, len(blob)), "BLS12-381 constants upload")
             _const_devices.add(device_index)
         return _lib

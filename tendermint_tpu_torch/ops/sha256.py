@@ -7,10 +7,13 @@ leaf of k blocks took ``leaf_block_state`` and k - 1 calls of
 ``leaf_block_update``, and an inner level ``merkle_inner_first`` then
 ``merkle_inner_tail``. Here each function is one kernel:
 
-- ``leaf_block_states(blocks, counts)``: blocks (N, B, 64) uint8, the
-  leaves pre-padded by ``pack_leaf_blocks``, and counts (N,) int32 ->
-  state (8, N); row r compresses exactly its counts[r] blocks (clamped
-  to [0, B]), so rows of one and of two blocks share a launch;
+- ``leaf_block_states(blocks, counts, offsets)``: blocks (T, 64) uint8,
+  the leaves pre-padded by ``pack_leaves`` one after another, offsets
+  (N,) int32 each leaf's first block and counts (N,) int32 its blocks
+  -> state (8, N); rows of one and of many blocks share a launch and the
+  buffer holds each leaf's own blocks only. ``dense_to_flat`` turns the
+  JAX package's dense (N, B, 64) layout (``pack_leaf_blocks``: every
+  leaf padded to the longest) into this form;
 - ``merkle_inner_level(level, m)``: level (8, C) and the logical node
   count m <= C -> (8, ceil(m/2)); column i is sha256(0x01 || left ||
   right) of columns 2i and 2i+1 when 2i+1 < m, and column 2i carried up
@@ -32,7 +35,8 @@ the card (or raises: there is no fallback from one to the other).
 
 The numpy packers (``pack_leaf_blocks``, ``leaf_blocks_needed``,
 ``state_to_digests``, ``digests_to_state``) are the port's copies of the
-JAX package's host helpers.
+JAX package's host helpers; ``pack_leaves`` is the flat packer the
+merkle engine uses.
 """
 
 from __future__ import annotations
@@ -101,15 +105,34 @@ def _from_i32(state: torch.Tensor) -> torch.Tensor:
     return state.to(torch.int64) & _M32
 
 
-def leaf_blocks_plain(blocks: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+def _words(blocks: torch.Tensor) -> torch.Tensor:
+    """(..., 64) uint8 blocks -> (..., 16) int64 big-endian words."""
+    b = blocks.to(torch.int64).unflatten(-1, (16, 4))
+    return (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+
+
+def dense_to_flat(blocks: torch.Tensor, counts: torch.Tensor):
+    """The JAX package's dense (N, B, 64) leaves -> the flat form: (N B,
+    64) blocks, row r's offset r B, its count clamped to [0, B]."""
     n, nb = blocks.shape[0], blocks.shape[1]
-    b = blocks.to(torch.int64).view(n, nb, 16, 4)
-    words = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]  # (N, B, 16)
+    if nb == 0:
+        raise ValueError("blocks: a leaf has at least one block")
+    offsets = torch.arange(n, dtype=torch.int32, device=blocks.device) * nb
+    return blocks.reshape(n * nb, 64), counts.clamp(0, nb), offsets
+
+
+def leaf_blocks_plain(blocks: torch.Tensor, counts: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    n = counts.shape[0]
     st = _initial(n, blocks.device)
-    for j in range(nb):
-        active = counts > j
-        new = _compress(st, [words[:, j, t] for t in range(16)])
-        st = [torch.where(active, nw, old) for nw, old in zip(new, st)]
+    total = blocks.shape[0]
+    start = offsets.to(torch.int64)
+    limit = torch.where((start >= 0) & (start <= total), total - start, torch.zeros_like(start))
+    cnt = torch.minimum(counts.to(torch.int64).clamp(min=0), limit)
+    words = _words(blocks)  # (T, 16)
+    for j in range(int(cnt.max()) if n else 0):
+        w = words[(start + j).clamp(0, max(total - 1, 0))]
+        new = _compress(st, [w[:, t] for t in range(16)])
+        st = [torch.where(cnt > j, nw, old) for nw, old in zip(new, st)]
     return _to_i32(torch.stack(st))
 
 
@@ -135,18 +158,18 @@ def inner_level_plain(level: torch.Tensor, m: int) -> torch.Tensor:
 # -- the wrappers ------------------------------------------------------------------
 
 
-def leaf_block_states(blocks: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """blocks (N, B, 64) uint8 pre-padded leaf blocks, counts (N,) int32
-    -> (8, N) int32 state: row r's SHA-256 state after its first
-    counts[r] blocks (its digest, for a fully padded leaf)."""
+def leaf_block_states(blocks: torch.Tensor, counts: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Pre-padded leaf blocks -> (8, N) int32 state: row r's SHA-256
+    state after its counts[r] blocks (its digest, for a fully padded
+    leaf). blocks (T, 64) uint8 with offsets (N,) int32, row r's blocks
+    from offsets[r] on (clamped to the buffer)."""
     dev = blocks.device
-    _check(blocks, "blocks", (None, None, 64), torch.uint8, dev)
-    n = blocks.shape[0]
+    n = counts.shape[0] if isinstance(counts, torch.Tensor) else -1
+    _check(blocks, "blocks", (None, 64), torch.uint8, dev)
+    _check(offsets, "offsets", (n,), torch.int32, dev)
     _check(counts, "counts", (n,), torch.int32, dev)
-    if blocks.shape[1] == 0:
-        raise ValueError("blocks: a leaf has at least one block")
     if not _route(dev):
-        return leaf_blocks_plain(blocks, counts)
+        return leaf_blocks_plain(blocks, counts, offsets)
     state = torch.empty((8, n), dtype=torch.int32, device=dev)
     if n:
         if blocks.data_ptr() % 16:
@@ -155,8 +178,8 @@ def leaf_block_states(blocks: torch.Tensor, counts: torch.Tensor) -> torch.Tenso
 
         lib = _lib(dev)
         check(lib, lib.tm_sha256_leaf_blocks(
-            blocks.data_ptr(), counts.data_ptr(), n, blocks.shape[1], state.data_ptr(), _stream(dev)),
-            "sha256_leaf_blocks launch")
+            blocks.data_ptr(), offsets.data_ptr(), counts.data_ptr(), n, blocks.shape[0], state.data_ptr(),
+            _stream(dev)), "sha256_leaf_blocks launch")
         leaf_block_states.launches += 1
     return state
 
@@ -213,7 +236,7 @@ def sha256(msgs: torch.Tensor) -> torch.Tensor:
     _check(msgs, "msgs", (None, None), torch.uint8, dev)
     blocks = pad(msgs).contiguous()
     counts = torch.full((msgs.shape[0],), blocks.shape[1], dtype=torch.int32, device=dev)
-    return state_bytes(leaf_block_states(blocks, counts))
+    return state_bytes(leaf_block_states(*dense_to_flat(blocks, counts)))
 
 
 KERNELS = {
@@ -294,6 +317,46 @@ def pack_leaf_blocks(items: Sequence[bytes], n_pad: int, n_blocks: int,
         flat[tail - 1 - k] = (bits >> (8 * k)) & 0xFF
     counts[:n] = nb
     return flat.reshape(n_pad, n_blocks, 64), counts
+
+
+def pack_leaves(items: Sequence[bytes], prefix_len: int = 1) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Leaves -> (blocks (T, 64) uint8, offsets (N,) int32, counts (N,)
+    int32): leaf i fully padded (``prefix_len`` zero bytes, the leaf,
+    0x80, zeros, the 64-bit big-endian bit length) in its counts[i]
+    blocks from block offsets[i] on, T the sum of the counts. The bytes
+    are the leaves' own plus at most 73 a leaf, whatever their spread."""
+    n = len(items)
+    p = int(prefix_len)
+    lens = np.fromiter((len(x) for x in items), dtype=np.int64, count=n)
+    nb = (lens + p + 72) // 64
+    offs = np.zeros(n, dtype=np.int64)
+    if n:
+        np.cumsum(nb[:-1], out=offs[1:])
+    total = int(nb.sum())
+    flat = np.zeros(total * 64, dtype=np.uint8)
+    base = offs * 64 + p
+    size = int(lens.sum())
+    if n and int(lens.min()) == int(lens.max()):
+        # uniform leaves (a validator set's): one reshape-copy, constant padding
+        length, row = int(lens[0]), int(nb[0]) * 64
+        rows = flat.reshape(n, row)
+        if length:
+            rows[:, p:p + length] = np.frombuffer(b"".join(items), dtype=np.uint8).reshape(n, length)
+        rows[:, p + length] = 0x80
+        rows[:, row - 8:] = np.frombuffer(((length + p) * 8).to_bytes(8, "big"), dtype=np.uint8)
+        return flat.reshape(total, 64), offs.astype(np.int32), nb.astype(np.int32)
+    if size:
+        starts = np.zeros(n, dtype=np.int64)
+        np.cumsum(lens[:-1], out=starts[1:])
+        flat[np.repeat(base - starts, lens) + np.arange(size, dtype=np.int64)] = np.frombuffer(
+            b"".join(items), dtype=np.uint8)
+    if n:
+        flat[base + lens] = 0x80
+        end = (offs + nb) * 64
+        bits = (lens + p) * 8
+        for k in range(8):
+            flat[end - 1 - k] = (bits >> (8 * k)) & 0xFF
+    return flat.reshape(total, 64), offs.astype(np.int32), nb.astype(np.int32)
 
 
 def leaf_blocks_needed(max_len: int) -> int:

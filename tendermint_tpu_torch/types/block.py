@@ -14,7 +14,7 @@ from typing import List, Optional
 import numpy as np
 
 from tendermint_tpu_torch.codec import signbytes
-from tendermint_tpu_torch.codec.binary import Writer
+from tendermint_tpu_torch.codec.binary import Reader, Writer
 from tendermint_tpu_torch.codec.signbytes import PRECOMMIT_TYPE, splice_timestamps
 from tendermint_tpu_torch.crypto import merkle
 
@@ -49,6 +49,11 @@ class PartSetHeader:
     def encode(self) -> bytes:
         return Writer().write_u32(self.total).write_bytes(self.hash).bytes()
 
+    @classmethod
+    def decode(cls, data: bytes) -> "PartSetHeader":
+        r = Reader(data)
+        return cls(total=r.read_u32(), hash=r.read_bytes())
+
     def __repr__(self) -> str:
         return f"{self.total}:{self.hash.hex()[:12]}"
 
@@ -71,6 +76,12 @@ class BlockID:
 
     def encode(self) -> bytes:
         return Writer().write_bytes(self.hash).write_bytes(self.parts.encode()).bytes()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "BlockID":
+        r = Reader(data)
+        h = r.read_bytes()
+        return cls(hash=h, parts=PartSetHeader.decode(r.read_bytes()))
 
     def key(self) -> bytes:
         """Map key for vote tallies (reference BlockID.Key)."""

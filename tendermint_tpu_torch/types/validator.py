@@ -1,7 +1,8 @@
 """Validator: address, pubkey, voting power and proposer priority (the
 port's copy of the JAX package's ``types/validator.py``: the fields, the
 tie-break that building a ValidatorSet reads, and the leaf encoding of
-the validator-set hash)."""
+the validator-set hash). The pubkey is any registered type (ed25519 or
+bls12-381)."""
 
 from __future__ import annotations
 
@@ -9,12 +10,12 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from tendermint_tpu_torch.codec.binary import Writer
-from tendermint_tpu_torch.crypto.keys import Ed25519PubKey, encode_pubkey
+from tendermint_tpu_torch.crypto.keys import encode_pubkey
 
 
 @dataclass
 class Validator:
-    pub_key: Ed25519PubKey
+    pub_key: object
     voting_power: int
     proposer_priority: int = 0
     address: bytes = field(default=b"")
@@ -38,7 +39,8 @@ class Validator:
     def hash_bytes(self) -> bytes:
         """The validator's leaf in the validator-set merkle root: the
         encoded pubkey and the voting power, not the priority (reference
-        Validator.Bytes, types/validator.go:102). 50 bytes for ed25519."""
+        Validator.Bytes, types/validator.go:102). 50 bytes for ed25519, 68
+        for bls12-381."""
         return Writer().write_bytes(self._pk_encoded()).write_i64(self.voting_power).bytes()
 
     def compare_proposer_priority(self, other: "Validator") -> "Validator":

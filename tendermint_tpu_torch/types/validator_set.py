@@ -18,9 +18,16 @@ tables, built once, and the commit's sign-bytes as two templates and
 per-row timestamps) and, where the provider has none, the generic path
 (``verify_commit_batch``, with the voting-power tally fused into the
 last kernel). On the tabled path the tally is summed on the host.
-Not here yet: the signature cache, aggregated (BLS) commits and key
-types other than ed25519 (a set holding another key type raises when
-its commits are checked).
+
+A set may hold BLS12-381 keys. In a set with any, the ed25519 rows take
+the paths above and the BLS rows (a 96-byte signature each) go to the
+BLS provider (``crypto/bls.py``) in one call: one launch maps their
+messages to G2 and one checks their pairings. ``verify_commit`` of an
+``AggregatedCommit`` (one aggregate signature and a signer bitmap) goes
+to ``verify_aggregated_commit``: the proof-of-possession gate, the
+quorum over the bitmap, then one aggregate, one map and one pairing
+launch. ``device=`` reaches the BLS provider too. Not here yet: the
+signature cache, and key types other than ed25519 and BLS12-381.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 from tendermint_tpu_torch.codec.signbytes import splice_timestamps
 from tendermint_tpu_torch.crypto import merkle
 from tendermint_tpu_torch.crypto.batch import BatchVerifier, default_provider
-from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+from tendermint_tpu_torch.crypto.keys import is_batch_ed25519
 from tendermint_tpu_torch.types.block import MAX_SIGNATURE_SIZE, BlockID, Commit
 from tendermint_tpu_torch.types.validator import Validator
 
@@ -76,6 +83,8 @@ class ValidatorSet:
         self.proposer: Optional[Validator] = None
         self._total_voting_power = self._sum_voting_power()
         self._arrays: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._ed: Optional[np.ndarray] = None
+        self._bls: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._dev_key: Optional[bytes] = None
         self._hash: Optional[bytes] = None
         if vals:
@@ -134,15 +143,37 @@ class ValidatorSet:
     # -- commit verification -------------------------------------------------
 
     def _device_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(V, 32) uint8 pubkeys and (V,) int64 powers, built once.
-        TypeError for a set with a key that is not ed25519."""
+        """(V, 32) uint8 ed25519 pubkeys (zero rows for other key types)
+        and (V,) int64 powers, built once with one join."""
         if self._arrays is None:
-            if not all(isinstance(v.pub_key, Ed25519PubKey) for v in self.validators):
-                raise TypeError("the port verifies ed25519 keys only")
-            pk = np.frombuffer(b"".join(v.pub_key.bytes() for v in self.validators), dtype=np.uint8)
+            zero = bytes(32)
+            raw = b"".join(v.pub_key.bytes() if ed else zero for v, ed in zip(self.validators, self._ed_mask()))
+            pk = np.frombuffer(raw, dtype=np.uint8).reshape(len(self.validators), 32)
             powers = np.asarray([v.voting_power for v in self.validators], dtype=np.int64)
-            self._arrays = (pk.reshape(len(self.validators), 32), powers)
+            self._arrays = (pk, powers)
         return self._arrays
+
+    def _ed_mask(self) -> np.ndarray:
+        """(V,) bool: the validators whose rows the ed25519 kernels take."""
+        if self._ed is None:
+            self._ed = np.asarray([is_batch_ed25519(v.pub_key) for v in self.validators], dtype=bool)
+        return self._ed
+
+    def bls_cache(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(V, 48) uint8 BLS pubkeys (zero rows for other key types) and
+        the (V,) BLS mask, built once (the JAX package's bls_cache; the
+        port's sets never change membership)."""
+        if self._bls is None:
+            from tendermint_tpu_torch.crypto.bls import is_batch_bls
+
+            pk = np.zeros((len(self.validators), 48), dtype=np.uint8)
+            mask = np.zeros(len(self.validators), dtype=bool)
+            for i, v in enumerate(self.validators):
+                if is_batch_bls(v.pub_key):
+                    pk[i] = np.frombuffer(v.pub_key.bytes(), dtype=np.uint8)
+                    mask[i] = True
+            self._bls = (pk, mask)
+        return self._bls
 
     def batch_cache(self) -> Tuple[bytes, np.ndarray]:
         """(key, pubkeys (V, 32)) for providers with per-valset tables:
@@ -231,7 +262,7 @@ class ValidatorSet:
         chain_id: str,
         block_id: BlockID,
         height: int,
-        commit: Commit,
+        commit,
         provider: Optional[BatchVerifier] = None,
         device=None,
     ) -> None:
@@ -241,22 +272,119 @@ class ValidatorSet:
         order, fail on the first invalid one, succeed as soon as the tallied
         for-block power exceeds 2/3 of the total. `provider` defaults to the
         shared TorchBatchVerifier on `device` (the card unless "cpu" is
-        asked for).
+        asked for); BLS rows go to the shared BLSBatchVerifier there. An
+        AggregatedCommit goes to ``verify_aggregated_commit``.
         """
+        from tendermint_tpu_torch.types.aggregate import AggregatedCommit
+
+        if isinstance(commit, AggregatedCommit):
+            return self.verify_aggregated_commit(chain_id, block_id, height, commit, device)
         self._check_commit_size(commit)
         self._verify_commit_basic(commit, height, block_id)
         idxs, vals_idx, sigs, powers, counted, sig_ok, tpl = self._commit_batch_arrays(chain_id, commit)
         v = provider if provider is not None else default_provider(device)
-        ok = self._rows_cached(v, vals_idx, sigs, tpl) if idxs else np.zeros(0, dtype=bool)
-        if ok is not None:
-            ok = ok & sig_ok
+        ed_rows = self._ed_mask()[vals_idx]
+        if not ed_rows.all():
+            ok = self._verify_mixed(commit, idxs, vals_idx, sigs, sig_ok, tpl, ed_rows, v, device)
             talled = int(powers[ok & counted].sum())
         else:
-            pk = self._device_arrays()[0][vals_idx]
-            msgs = splice_timestamps(tpl[0][tpl[1]], tpl[2])
-            ok, talled = v.verify_commit_batch(pk, msgs, sigs, powers, counted & sig_ok)
-            ok = np.asarray(ok, dtype=bool) & sig_ok
+            ok = self._rows_cached(v, vals_idx, sigs, tpl) if idxs else np.zeros(0, dtype=bool)
+            if ok is not None:
+                ok = ok & sig_ok
+                talled = int(powers[ok & counted].sum())
+            else:
+                pk = self._device_arrays()[0][vals_idx]
+                msgs = splice_timestamps(tpl[0][tpl[1]], tpl[2])
+                ok, talled = v.verify_commit_batch(pk, msgs, sigs, powers, counted & sig_ok)
+                ok = np.asarray(ok, dtype=bool) & sig_ok
         self._replay_commit_full(commit, ok, idxs, powers, counted, talled)
+
+    def _verify_mixed(self, commit, idxs, vals_idx, sigs, sig_ok, tpl, ed_rows, provider, device) -> np.ndarray:
+        """Verdicts of a commit's rows in a set that is not all ed25519:
+        the ed25519 rows on the provider's tabled path (the generic one
+        where it has none), the others by ``_fill_non_ed``."""
+        ok = np.zeros(len(idxs), dtype=bool)
+        sub = np.flatnonzero(ed_rows)
+        if sub.size:
+            sub_tpl = (tpl[0], tpl[1][sub], tpl[2][sub])
+            got = self._rows_cached(provider, vals_idx[sub], sigs[sub], sub_tpl)
+            if got is None:
+                pk = self._device_arrays()[0][vals_idx[sub]]
+                got = provider.verify_batch(pk, splice_timestamps(sub_tpl[0][sub_tpl[1]], sub_tpl[2]), sigs[sub])
+            ok[sub] = np.asarray(got, dtype=bool) & sig_ok[sub]
+        rest = np.flatnonzero(~ed_rows)
+        msgs = splice_timestamps(tpl[0][tpl[1][rest]], tpl[2][rest])
+        ok[rest] = self._fill_non_ed(commit, [idxs[r] for r in rest], vals_idx[rest], msgs, device)
+        return ok
+
+    def _fill_non_ed(self, commit, sig_idx, vals_idx, msgs, device) -> np.ndarray:
+        """Verdicts of rows whose validator is not ed25519 (the JAX
+        package's _serial_fill_non_ed): the BLS rows with a signature of
+        exactly 96 bytes to the BLS provider in one call, every other row
+        through its own key's serial verify (a BLS key rejects a signature
+        of any other length; padding one into the batch could make a
+        valid encoding of it). A key whose verify raises rejects its row."""
+        from tendermint_tpu_torch.crypto.bls import BLS_SIGNATURE_SIZE, get_default_bls_provider, is_batch_bls
+
+        n = len(sig_idx)
+        ok = np.zeros(n, dtype=bool)
+        batch, rest = [], []
+        for j in range(n):
+            v = self.validators[int(vals_idx[j])]
+            sig = commit.signatures[sig_idx[j]].signature
+            (batch if is_batch_bls(v.pub_key) and len(sig) == BLS_SIGNATURE_SIZE else rest).append(j)
+        if batch:
+            pk = np.stack([np.frombuffer(self.validators[int(vals_idx[j])].pub_key.bytes(), dtype=np.uint8)
+                           for j in batch])
+            sg = np.stack([np.frombuffer(commit.signatures[sig_idx[j]].signature, dtype=np.uint8) for j in batch])
+            ok[batch] = np.asarray(get_default_bls_provider(device).verify_batch(pk, msgs[batch], sg), dtype=bool)
+        for j in rest:
+            v = self.validators[int(vals_idx[j])]
+            try:
+                ok[j] = bool(v.pub_key.verify(msgs[j].tobytes(), commit.signatures[sig_idx[j]].signature))
+            except Exception:  # an invalid signature for that row, never an abort of the batch
+                ok[j] = False
+        return ok
+
+    def verify_aggregated_commit(self, chain_id: str, block_id: BlockID, height: int, agg_commit,
+                                 device=None) -> None:
+        """Verify +2/3 of this set signed `block_id` at `height` as ONE
+        aggregate BLS signature over the canonical commit message
+        (types/aggregate.AggregatedCommit), with the JAX package's checks,
+        error classes and messages: the quorum is tallied over the signer
+        bitmap, every flagged signer must hold a BLS key with a verified
+        proof of possession (the rogue-key defense), then one pairing check
+        against the aggregated pubkey of the set bits."""
+        from tendermint_tpu_torch.crypto.bls import get_default_bls_provider, has_possession
+
+        err = agg_commit.validate_basic()
+        if err:
+            raise ErrInvalidCommit(err)
+        if height != agg_commit.height:
+            raise ErrInvalidCommit(f"wrong height: {height} vs {agg_commit.height}")
+        if block_id != agg_commit.block_id:
+            raise ErrInvalidCommit(f"wrong block ID: {block_id} vs {agg_commit.block_id}")
+        if len(agg_commit.signers) != len(self.validators):
+            raise ErrInvalidCommit(
+                f"wrong signer bitmap size: {len(self.validators)} vs {len(agg_commit.signers)}")
+        pk_table, bls_mask = self.bls_cache()
+        mask = agg_commit.signers.as_numpy()
+        if not bool(np.all(bls_mask[mask])):
+            raise ErrInvalidCommit("aggregated commit flags a validator without a BLS key")
+        for i in np.nonzero(mask)[0]:
+            if not has_possession(pk_table[i].tobytes()):
+                raise ErrInvalidCommit(
+                    f"aggregated commit flags validator {int(i)} without a "
+                    "verified proof-of-possession (rogue-key defense)")
+        _, all_powers = self._device_arrays()
+        talled = int(all_powers[mask].sum())
+        needed = self.total_voting_power() * 2 // 3
+        if talled <= needed:
+            raise ErrNotEnoughVotingPower(f"have {talled}, need > {needed}")
+        v = get_default_bls_provider(device)
+        rows = [pk_table[i].tobytes() for i in range(len(self.validators))]
+        if not v.verify_aggregate(rows, mask, agg_commit.sign_bytes(chain_id), agg_commit.agg_sig):
+            raise ErrInvalidCommitSignature("aggregate signature does not verify against the signer set")
 
     def _replay_commit_full(self, commit: Commit, ok, idxs, powers, counted, talled: int) -> None:
         """The reference's sequential early-return acceptance (loop at
@@ -315,11 +443,16 @@ class ValidatorSet:
         idxs, vals_idx, sigs, powers, counted, sig_ok, tpl = self._commit_batch_arrays(
             chain_id, commit, by_address=True)
         v = provider if provider is not None else default_provider(device)
-        ok = self._rows_cached(v, vals_idx, sigs, tpl) if idxs else np.zeros(0, dtype=bool)
-        if ok is None:
-            pk = self._device_arrays()[0][vals_idx]
-            ok = np.asarray(v.verify_batch(pk, splice_timestamps(tpl[0][tpl[1]], tpl[2]), sigs), dtype=bool)
-        self._replay_commit_trusting(ok & sig_ok, idxs, vals_idx, powers, counted, trust_level)
+        ed_rows = self._ed_mask()[vals_idx]
+        if not ed_rows.all():
+            ok = self._verify_mixed(commit, idxs, vals_idx, sigs, sig_ok, tpl, ed_rows, v, device)
+        else:
+            ok = self._rows_cached(v, vals_idx, sigs, tpl) if idxs else np.zeros(0, dtype=bool)
+            if ok is None:
+                pk = self._device_arrays()[0][vals_idx]
+                ok = np.asarray(v.verify_batch(pk, splice_timestamps(tpl[0][tpl[1]], tpl[2]), sigs), dtype=bool)
+            ok = ok & sig_ok
+        self._replay_commit_trusting(ok, idxs, vals_idx, powers, counted, trust_level)
 
     def _replay_commit_trusting(self, ok, idxs, vals_idx, powers, counted, trust_level: Fraction) -> None:
         """The reference's trusting loop (types/validator_set.go:754
@@ -387,9 +520,12 @@ def verify_commits_batched(
     path in one call, with each spec's two sign-bytes templates stacked;
     otherwise (or where the tabled path answers None) to the generic
     ``verify_batch`` in one call. A signature that is not 64 bytes long
-    is rejected, as in ``verify_commit``."""
+    is rejected, as in ``verify_commit``. Where any row's validator is
+    not ed25519, the ed25519 rows of all specs go to ``verify_batch`` in
+    one call and each spec's other rows to ``_fill_non_ed`` (the JAX
+    package's mixed branch)."""
     results: List[Optional[Exception]] = [None] * len(specs)
-    segments = []  # (spec index, idxs, vals_idx, powers, counted)
+    segments = []  # (spec index, idxs, vals_idx, powers, counted, tpl)
     vals_parts, sig_parts, ok_parts, tpl_parts, tidx_parts, ts8_parts, pk_parts = [], [], [], [], [], [], []
     for si, s in enumerate(specs):
         try:
@@ -403,7 +539,7 @@ def verify_commits_batched(
         except Exception as e:  # the spec's verdict is the exception itself
             results[si] = e
             continue
-        segments.append((si, idxs, vals_idx, powers, counted))
+        segments.append((si, idxs, vals_idx, powers, counted, tpl))
         vals_parts.append(vals_idx)
         sig_parts.append(sigs)
         ok_parts.append(sig_ok)
@@ -418,7 +554,23 @@ def verify_commits_batched(
     v = provider if provider is not None else default_provider(device)
     ok = None
     key0, all_pk0 = specs[segments[0][0]].valset.batch_cache()
-    if sigs.shape[0] == 0:
+    ed_rows = np.concatenate([specs[seg[0]].valset._ed_mask()[seg[2]] for seg in segments])
+    if not ed_rows.all():
+        ok = np.zeros(len(ed_rows), dtype=bool)
+        sub = np.flatnonzero(ed_rows)
+        if sub.size:
+            ok[sub] = np.asarray(v.verify_batch(np.concatenate(pk_parts)[sub],
+                                                splice_timestamps(templates[tmpl_idx[sub]], ts8[sub]), sigs[sub]),
+                                 dtype=bool)
+        off = 0
+        for si, idxs, vals_idx, _p, _c, tpl in segments:
+            n = len(idxs)
+            rest = np.flatnonzero(~ed_rows[off:off + n])
+            msgs = splice_timestamps(tpl[0][tpl[1][rest]], tpl[2][rest])
+            ok[off + rest] = specs[si].valset._fill_non_ed(specs[si].commit, [idxs[r] for r in rest], vals_idx[rest],
+                                                           msgs, device)
+            off += n
+    elif sigs.shape[0] == 0:
         ok = np.zeros(0, dtype=bool)
     elif all(specs[seg[0]].valset.batch_cache()[0] == key0 for seg in segments[1:]):
         all_idx = np.concatenate(vals_parts).astype(np.int32)
@@ -427,9 +579,9 @@ def verify_commits_batched(
             ok = v.verify_rows_cached(key0, all_pk0, all_idx, splice_timestamps(templates[tmpl_idx], ts8), sigs)
     if ok is None:
         ok = v.verify_batch(np.concatenate(pk_parts), splice_timestamps(templates[tmpl_idx], ts8), sigs)
-    ok = np.asarray(ok, dtype=bool) & np.concatenate(ok_parts)
+    ok = np.asarray(ok, dtype=bool) & (np.concatenate(ok_parts) | ~ed_rows)
     off = 0
-    for si, idxs, vals_idx, powers, counted in segments:
+    for si, idxs, vals_idx, powers, counted, _tpl in segments:
         s = specs[si]
         n = len(idxs)
         ok_slice = ok[off:off + n]

@@ -314,16 +314,33 @@ def test_verify_commits_batched_matches_jax_spec_by_spec(world):
 
 
 def test_a_key_that_is_not_ed25519_raises(world):
-    _j, p = world
+    """A key of neither kernel's type (not ed25519, not BLS12-381) is
+    verified through its own verify(), as the JAX package's
+    _serial_fill_non_ed does; one whose verify raises rejects its row, so
+    the check raises where the row is needed: here the commit's first
+    signer's key replaced by such a key, on both packages."""
+    j, p = world
 
     class OtherKey:
+        def __init__(self, addr):
+            self.addr = addr
+
         def address(self):
-            return b"\x07" * 20
+            return self.addr
 
         def bytes(self):
             return b"\x07" * 33
 
-    vals = [PortValidator(v.pub_key, v.voting_power) for v in p["a"].validators] + [PortValidator(OtherKey(), 5)]
-    with pytest.raises(TypeError, match="ed25519 keys only"):
-        PortValidatorSet(vals).verify_commit_trusting(CHAIN, p["h2"].commit.block_id, 2, p["h2"].commit,
-                                                  pver.DEFAULT_TRUST_LEVEL, device="cpu")
+    first = next(cs for cs in p["h2"].commit.signatures if not cs.absent_())
+
+    def other_set(vs, validator_cls):
+        return [validator_cls(OtherKey(v.address), v.voting_power) if v.address == first.validator_address
+                else validator_cls(v.pub_key, v.voting_power) for v in vs.validators]
+
+    jset = jvs.ValidatorSet(other_set(j["a"], Validator))
+    want = outcome(lambda: jset.verify_commit_trusting(CHAIN, j["h2"].commit.block_id, 2, j["h2"].commit,
+                                                       pver.DEFAULT_TRUST_LEVEL, provider=CPUBatchVerifier()))
+    pset = PortValidatorSet(other_set(p["a"], PortValidator))
+    got = outcome(lambda: pset.verify_commit_trusting(CHAIN, p["h2"].commit.block_id, 2, p["h2"].commit,
+                                                      pver.DEFAULT_TRUST_LEVEL, device="cpu"))
+    assert got == want and got[0] == "ErrInvalidCommitSignature", (got, want)

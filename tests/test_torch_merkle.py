@@ -94,7 +94,7 @@ def test_leaf_blocks_match_jax_leaf_block_state_and_update(n):
     for i in range(1, nb):
         st = jsha.leaf_block_update(st, jnp.asarray(blocks[:, i]), jnp.asarray(counts > i))
     want = np.asarray(st).view(np.int32)
-    got = sha256.leaf_block_states(torch.from_numpy(blocks), torch.from_numpy(counts))
+    got = sha256.leaf_block_states(*sha256.dense_to_flat(torch.from_numpy(blocks), torch.from_numpy(counts)))
     assert got.dtype == torch.int32 and tuple(got.shape) == (8, n)
     np.testing.assert_array_equal(got.numpy(), want)
     digests = sha256.state_to_digests(got.numpy())
@@ -153,18 +153,42 @@ def test_leaf_over_sixteen_blocks():
     nb = sha256.leaf_blocks_needed(max(map(len, items)))
     blocks, counts = sha256.pack_leaf_blocks(items, len(items), nb)
     assert nb == 40 and counts.tolist() == [40, 1, 1, 2]
-    got = sha256.state_to_digests(sha256.leaf_block_states(torch.from_numpy(blocks), torch.from_numpy(counts)).numpy())
+    flat = sha256.dense_to_flat(torch.from_numpy(blocks), torch.from_numpy(counts))
+    got = sha256.state_to_digests(sha256.leaf_block_states(*flat).numpy())
     assert [d.tobytes() for d in got] == [hashlib.sha256(b"\x00" + it).digest() for it in items]
 
 
+def test_flat_leaf_packing_holds_the_leaves_bytes(engine):
+    """One long leaf among short ones: the flat buffer holds each leaf's
+    own blocks (the dense layout padded 1,023 x 32 B + 1 MiB to 1.07 GB),
+    and the tree through it has the same root and aunts as the JAX
+    package's host path. The plain leaf version compresses a long leaf
+    block by block, so the tree is checked with a 64-block leaf and the
+    packing at the full 1 MiB."""
+    rng = np.random.default_rng(22)
+    short = [rng.bytes(32) for _ in range(1023)]
+    blocks, offsets, counts = sha256.pack_leaves(short + [rng.bytes(1 << 20)])
+    leaf_bytes = 1023 * 32 + (1 << 20)
+    assert blocks.nbytes <= 1.1 * leaf_bytes and counts.tolist()[-1] == 16385
+    assert offsets.tolist()[:3] == [0, 1, 2] and offsets[-1] == 1023
+    items = short[:200] + [rng.bytes(64 * 64 - 73)] + short[200:300]
+    blocks, offsets, counts = sha256.pack_leaves(items)
+    assert blocks.shape == (300 + 64, 64)
+    root, proofs = merkle.proofs_from_byte_slices(items, device="cpu")
+    jroot, jproofs = jmerkle.proofs_from_byte_slices(items)
+    assert root == jroot and [p.aunts for p in proofs] == [p.aunts for p in jproofs]
+    assert engine["leaf"] == 1
+
+
 def test_wrappers_check_their_inputs():
-    blocks = torch.zeros((2, 1, 64), dtype=torch.uint8)
+    blocks = torch.zeros((2, 64), dtype=torch.uint8)
+    offsets = torch.tensor([0, 1], dtype=torch.int32)
     with pytest.raises(TypeError):
-        sha256.leaf_block_states(blocks, torch.ones(2, dtype=torch.int64))
+        sha256.leaf_block_states(blocks, torch.ones(2, dtype=torch.int64), offsets)
     with pytest.raises(ValueError):
-        sha256.leaf_block_states(blocks, torch.ones(3, dtype=torch.int32))
+        sha256.leaf_block_states(blocks, torch.ones(3, dtype=torch.int32), offsets)
     with pytest.raises(ValueError):
-        sha256.leaf_block_states(torch.zeros((2, 0, 64), dtype=torch.uint8), torch.ones(2, dtype=torch.int32))
+        sha256.dense_to_flat(torch.zeros((2, 0, 64), dtype=torch.uint8), torch.ones(2, dtype=torch.int32))
     level = torch.zeros((8, 5), dtype=torch.int32)
     for m in (0, 6):
         with pytest.raises(ValueError):
@@ -172,7 +196,7 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(TypeError):
         sha256.merkle_inner_level(level.to(torch.int64), 5)
     # a count past the blocks given is clamped, as in the kernel
-    one = sha256.leaf_block_states(blocks, torch.tensor([1, 9], dtype=torch.int32))
+    one = sha256.leaf_block_states(*sha256.dense_to_flat(blocks.view(2, 1, 64), torch.tensor([1, 9], dtype=torch.int32)))
     assert torch.equal(one[:, 0], one[:, 1])
 
 
@@ -339,10 +363,10 @@ def test_sha256_kernels_match_their_plain_versions_on_card():
     dev = torch.device("cuda")
     items = ragged_leaves(11, 1025, 3) + [b"", bytes(54), bytes(55), bytes(40 * 64 - 73)]
     blocks, counts = sha256.pack_leaf_blocks(items, len(items), sha256.leaf_blocks_needed(max(map(len, items))))
-    b, c = torch.from_numpy(blocks).to(dev), torch.from_numpy(counts).to(dev)
+    flat = sha256.dense_to_flat(torch.from_numpy(blocks).to(dev), torch.from_numpy(counts).to(dev))
     sha256.reset_launches()
-    level = sha256.leaf_block_states(b, c)
-    assert torch.equal(level.cpu(), sha256.leaf_blocks_plain(b, c).cpu())
+    level = sha256.leaf_block_states(*flat)
+    assert torch.equal(level.cpu(), sha256.leaf_blocks_plain(*flat).cpu())
     m = len(items)
     while m > 1:
         nxt = sha256.merkle_inner_level(level, m)
