@@ -92,10 +92,34 @@ Phases (any failure raises and ends the run with a nonzero exit):
    signer, a wrong aggregate signature, too little power; times and
    split. A mixed set of 64 ed25519 and 64 BLS validators: the tabled
    ed25519 kernels and the BLS map and pairing in one verify_commit.
+9. The mesh runtime (tendermint_tpu_torch/parallel). DeviceTopology.
+   discover() lists every CUDA device; with one, no plan is collective
+   and each routed engine gives its unrouted results: verify_commit at
+   10,000 on the tabled path (a routed TorchBatchVerifier set as the
+   default provider) and on the generic path (9,510 rows),
+   verify_commit_trusting, BLSEngine.verify_rows on phase 8's pairing
+   rows, MerkleHasher.root of the 10,000 validator leaves. The same calls
+   over two placed lanes of cuda:0 (MeshRouter(DeviceTopology([cuda:0] *
+   2))), and over the real devices (up to 4) when there are several:
+   verdicts, tallies, roots and errors identical to the unrouted calls
+   (the negative cases of phase 5 with the bad signature in the second
+   lane's chunk), each routed kernel launched once a slot and
+   ed25519_build_tables once a distinct device and set, the router's
+   stats (no shard failure, device_rows summing to the rows its
+   collective plans sent). Logical lanes: MeshRoutedVerifier over four
+   host lanes under verify_commit, tabled and generic, four launches of
+   each kernel. A lane whose inner call raises: the answer recomputed by
+   the kernels, one shard failure, that lane's breaker open and the next
+   plan without it. Timing of two lanes on one card: the cost of
+   splitting a bundle, not a multi-GPU figure (verify_commit p50/p99 of
+   30 fresh commits beside phases 4 and 5; one device and two lanes in
+   turns: verify_commit, the BLS rows, the merkle root; the kernels alone
+   on the device, one launch a stage against one a lane). A JSON line
+   {"mesh": ...} holds the phase's counts, stats and times.
 
 Before the last line it prints one JSON object with a row per kernel
-(launches, max_abs_err, ms, plain_ms, bound_ms, ...), then the
-nvidia-smi line. In every row `ms` is the median time a call of
+(launches, max_abs_err, ms, plain_ms, bound_ms, ...; launches_mesh_two_lanes
+from phase 9's two-lane calls), then the nvidia-smi line. In every row `ms` is the median time a call of
 back-to-back calls, the wrapper's host cost of a launch included, and
 `ms_device_only` the device alone (a sleep kernel holds the stream
 while the host enqueues the calls); the last line is {"ok": true, "device": {...}}. Every
@@ -346,21 +370,25 @@ def compare_tabled(ed, field, tables, a_ok, pk_all, sig, src):
     return {"ed25519_prepare_tabled": err_prep, "ed25519_scan_tabled": err_scan}, ok
 
 
-def negative_cases(vs, commit, bid, provider) -> None:
-    """A bad signature before quorum and a commit with 60 % of the power
-    must both be refused."""
+def negative_cases(vs, commit, bid, provider, bad_pos: int = 5, quiet: bool = False) -> list:
+    """A bad signature before quorum (in the commit's present row
+    `bad_pos`) and a commit with 60 % of the power must both be refused.
+    Returns the two errors as (class, message)."""
     from tendermint_tpu_torch import Commit, ErrInvalidCommitSignature, ErrNotEnoughVotingPower
     from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_ABSENT, CommitSig
 
     rows_present = [i for i, cs in enumerate(commit.signatures) if not cs.absent_()]
-    cs = commit.signatures[rows_present[5]]
+    cs = commit.signatures[rows_present[bad_pos]]
     bad_commit = Commit(commit.height, commit.round, commit.block_id, list(commit.signatures))
-    bad_commit.signatures[rows_present[5]] = dataclasses.replace(
+    bad_commit.signatures[rows_present[bad_pos]] = dataclasses.replace(
         cs, signature=bytes([cs.signature[0] ^ 1]) + cs.signature[1:])
+    errors = []
     try:
         vs.verify_commit(CHAIN, bid, HEIGHT, bad_commit, provider=provider)
     except ErrInvalidCommitSignature as e:
-        print(f"  bad signature before quorum: ErrInvalidCommitSignature ({e})")
+        errors.append((type(e).__name__, str(e)))
+        if not quiet:
+            print(f"  bad signature before quorum: ErrInvalidCommitSignature ({e})")
     else:
         raise RuntimeError("a bad signature before quorum was accepted")
     total = vs.total_voting_power()
@@ -374,9 +402,12 @@ def negative_cases(vs, commit, bid, provider) -> None:
     try:
         vs.verify_commit(CHAIN, bid, HEIGHT, low, provider=provider)
     except ErrNotEnoughVotingPower as e:
-        print(f"  {100 * talled / total:.1f} % of the power: ErrNotEnoughVotingPower ({e})")
+        errors.append((type(e).__name__, str(e)))
+        if not quiet:
+            print(f"  {100 * talled / total:.1f} % of the power: ErrNotEnoughVotingPower ({e})")
     else:
         raise RuntimeError("a commit with 60 % of the power was accepted")
+    return errors
 
 
 def fresh(commit):
@@ -1496,7 +1527,375 @@ def phase8(card, kernels):
     rows_out["bls12_pairing_check"]["verify_commit_ms"] = {"per_signature": [s50, s99, swall],
                                                            "aggregated": [a50, a99, awall], "mixed": [m50, m99, mwall]}
     rows_out["bls12_pairing_check"]["host_split_ms"] = {"per_signature": ssplit, "aggregated": asplit}
-    return rows_out
+    # the pairing rows as oracle points (the commit's decoded rows, then the
+    # adversarial ones), for the routed engine of phase 9
+    flags = torch.zeros(pair_inputs[0].shape[0], dtype=torch.bool)
+    bls_rows = list(zip(bls.g1_points(pair_inputs[0], flags), bls.g2_points(pair_inputs[1], flags),
+                        bls.g2_points(pair_inputs[2], flags)))
+    return rows_out, bls_rows
+
+
+# -- phase 9: the mesh runtime ------------------------------------------------
+
+
+def all_launches() -> dict:
+    from tendermint_tpu_torch.ops import bls12, ed25519, sha256
+
+    return {**ed25519.launches(), **sha256.launches(), **bls12.launches()}
+
+
+def reset_all_launches() -> None:
+    from tendermint_tpu_torch.ops import bls12, ed25519, sha256
+
+    ed25519.reset_launches()
+    sha256.reset_launches()
+    bls12.reset_launches()
+
+
+def counted_run(fn):
+    """The launch counts of one call of `fn`: set to 0 just before, read
+    just after. Returns (counts, fn's value)."""
+    reset_all_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return {k: v for k, v in all_launches().items() if v}, out
+
+
+def plan_recorder(router):
+    """Record the rows of every plan `router` makes, and whether it was
+    collective: the rows the engines sent through it."""
+    seen = []
+    plan = router.plan
+
+    def recording(n, min_rows=None):
+        p = plan(n, min_rows)
+        seen.append((int(n), p.collective))
+        return p
+
+    router.plan = recording
+    return seen
+
+
+def check_router(router, seen, what: str, collective: bool, before=None) -> dict:
+    """The router's stats after the calls that `seen` recorded (since the
+    stats `before`, if given)."""
+    st = router.stats()
+    sent = sum(n for n, c in seen if c)
+    rows = sum(st["device_rows"]) - (sum(before["device_rows"]) if before else 0)
+    require(st["shard_failures"] == 0, f"{what}: no shard failed: {st}")
+    require(rows == sent, f"{what}: device_rows sum to the {sent} rows of its collective plans: {st}")
+    if collective:
+        require(st["collective_bundles"] >= 1, f"{what}: collective bundles ran: {st}")
+    else:
+        require(st["collective_bundles"] == 0, f"{what}: a one-device topology is never collective: {st}")
+    return {k: st[k] for k in ("devices", "admitted", "collective_bundles", "single_bundles", "shard_failures",
+                               "sheds", "device_rows")}
+
+
+def routed_engines(vs, vs_b, commit, bid, router, verifier_t, verifier_g, bls_rows, want):
+    """The four routed calls (tabled and generic verify_commit, the BLS
+    engine, the merkle root) and verify_commit_trusting through `router`,
+    each held bit-identical to its unrouted result in `want`. Returns
+    {call: launch counts}."""
+    from tendermint_tpu_torch import BLSEngine, MerkleHasher, TorchBatchVerifier, get_default_provider, \
+        set_default_provider
+    from tendermint_tpu_torch.crypto import merkle
+
+    key, all_pk = vs.batch_cache()
+    _i, vals_idx, csig, cpow, ccnt, _s, tpl = vs._commit_batch_arrays(CHAIN, commit)
+    key_b, pk_b = vs_b.batch_cache()
+    _ib, b_vals, b_sig, _pb, _cb, _sb, b_tpl = vs_b._commit_batch_arrays(CHAIN, commit, by_address=True)
+    routed_t = TorchBatchVerifier(router=router)
+    routed_g = type(verifier_g)(router=router)
+    counts = {}
+    prev = get_default_provider()
+    set_default_provider(routed_t)
+    try:
+        counts["verify_commit (tabled, default provider)"], _ = counted_run(
+            lambda: vs.verify_commit(CHAIN, bid, HEIGHT, fresh(commit)))
+    finally:
+        set_default_provider(prev)
+    ok_t = routed_t.verify_rows_cached_templated(key, all_pk, vals_idx, *tpl, csig)
+    require(np.array_equal(ok_t, want["ok_t"]), "routed tabled verdicts equal the unrouted ones")
+    counts["verify_commit (generic)"], _ = counted_run(
+        lambda: vs.verify_commit(CHAIN, bid, HEIGHT, fresh(commit), provider=routed_g))
+    ok_g, tally_g = routed_g.verify_commit_batch(all_pk[vals_idx], splice_ts(tpl), csig, cpow, ccnt)
+    require(np.array_equal(ok_g, want["ok_g"]) and tally_g == want["tally_g"],
+            f"routed generic verdicts and tally equal the unrouted ones ({tally_g} vs {want['tally_g']})")
+    counts["verify_commit_trusting"], _ = counted_run(
+        lambda: vs_b.verify_commit_trusting(CHAIN, bid, HEIGHT, fresh(commit), Fraction(1, 3), provider=routed_t))
+    ok_b = routed_t.verify_rows_cached_templated(key_b, pk_b, b_vals, *b_tpl, b_sig)
+    require(np.array_equal(ok_b, want["ok_b"]), "routed trusting verdicts equal the unrouted ones")
+    counts["BLSEngine.verify_rows"], ok_bls = counted_run(
+        lambda: BLSEngine(router=router).verify_rows(bls_rows))
+    require(np.array_equal(ok_bls, want["ok_bls"]), "routed BLS verdicts equal the unrouted ones")
+    counts["MerkleHasher.root"], root = counted_run(lambda: MerkleHasher(router=router).root(want["leaves"]))
+    merkle.configure_device(router=router)
+    try:
+        seam_root = merkle.hash_from_byte_slices(want["leaves"])
+    finally:
+        merkle.configure_device(router=None)
+    require(root == seam_root == want["root"], "routed merkle roots equal the unrouted one")
+    return counts
+
+
+def inner_levels(width: int) -> int:
+    """The inner-level launches of a root of `width` leaves: one a level
+    while the level is wider than HOST_TAIL_WIDTH."""
+    from tendermint_tpu_torch.models import hasher
+
+    levels = 0
+    while width > max(hasher.HOST_TAIL_WIDTH, 1):
+        width, levels = (width + 1) // 2, levels + 1
+    return levels
+
+
+def paired_ms(call_a, call_b, make, reps: int):
+    """CUDA events p50 and p99 of `call_a(make())` and `call_b(make())`,
+    called in turns (the order alternating), each on a fresh `make()`
+    made outside the timed span: (a50, a99, b50, b99)."""
+    times = ([], [])
+    for i in range(reps):
+        for which in ((0, 1) if i % 2 == 0 else (1, 0)):
+            arg = make()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            (call_a, call_b)[which](arg)
+            end.record()
+            torch.cuda.synchronize()
+            times[which].append(start.elapsed_time(end))
+    return tuple(float(np.percentile(t, q)) for t in times for q in (50, 99))
+
+
+def splice_ts(tpl):
+    from tendermint_tpu_torch.codec.signbytes import splice_timestamps
+
+    return splice_timestamps(tpl[0][tpl[1]], tpl[2])
+
+
+def phase9(vs, vs_b, commit, bid, card, kernels, bls_rows, verifier_t, verifier_g, unrouted_ms):
+    """The mesh runtime (parallel/): the real topology, placed lanes on
+    this card (and the real devices when there are several), logical
+    lanes, a lane that fails, and the cost of splitting a bundle."""
+    from tendermint_tpu_torch import (BLSEngine, DeviceTopology, MerkleHasher, MeshRoutedVerifier, MeshRouter,
+                                      TorchBatchVerifier, get_default_provider, set_default_provider)
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.utils.watchdog import CircuitBreaker
+
+    t_phase = time.perf_counter()
+    key, all_pk = vs.batch_cache()
+    _i, vals_idx, csig, cpow, ccnt, _s, tpl = vs._commit_batch_arrays(CHAIN, commit)
+    key_b, pk_b = vs_b.batch_cache()
+    _ib, b_vals, b_sig, _pb, _cb, _sb, b_tpl = vs_b._commit_batch_arrays(CHAIN, commit, by_address=True)
+    n = len(vals_idx)
+    ok_g, tally_g = verifier_g.verify_commit_batch(all_pk[vals_idx], splice_ts(tpl), csig, cpow, ccnt)
+    leaves = [v.hash_bytes() for v in vs.validators]
+    want = {"ok_t": verifier_t.verify_rows_cached_templated(key, all_pk, vals_idx, *tpl, csig),
+            "ok_g": ok_g, "tally_g": tally_g,
+            "ok_b": verifier_t.verify_rows_cached_templated(key_b, pk_b, b_vals, *b_tpl, b_sig),
+            "ok_bls": BLSEngine().verify_rows(bls_rows), "leaves": leaves, "root": MerkleHasher().root(leaves)}
+    require(bool(want["ok_t"].all()) and not want["ok_bls"].all() and want["ok_bls"][:N_BLS - 8].all(),
+            "the unrouted references: every commit row verifies; the BLS rows hold rejected adversarial rows")
+    report = {}
+
+    # 1. the real topology
+    topo = DeviceTopology.discover()
+    require(topo is not None and len(topo) == torch.cuda.device_count(),
+            f"discover() lists every CUDA device: {None if topo is None else topo.devices}")
+    real = MeshRouter(topo, min_rows=256)
+    if len(topo) == 1:
+        plans = [real.plan(m) for m in (1, 255, 256, n, 100_000)]
+        require(not any(p.collective for p in plans), "one device: no plan is collective")
+    seen = plan_recorder(real)
+    counts = routed_engines(vs, vs_b, commit, bid, real, verifier_t, verifier_g, bls_rows, want)
+    report["real topology"] = {"devices": [str(d) for d in topo.devices], "launches": counts,
+                               "router": check_router(real, seen, "the real topology", len(topo) > 1)}
+    print(f"phase 9: DeviceTopology.discover() = {[str(d) for d in topo.devices]} (platform {topo.platform}); "
+          f"routed calls identical to the unrouted ones; router {report['real topology']['router']}")
+
+    # 2. placed lanes: two lanes of this card, then the real devices
+    placed = [("two lanes of cuda:0", DeviceTopology([torch.device("cuda", 0)] * 2))]
+    if torch.cuda.device_count() >= 2:
+        placed.append((f"{min(4, torch.cuda.device_count())} devices", DeviceTopology.discover(max_devices=4)))
+    else:
+        print("  the placed path over several real devices was not run: torch.cuda.device_count() is 1 on this "
+              "machine")
+    lanes_two = None
+    for what, topo_p in placed:
+        router = MeshRouter(topo_p, min_rows=256)
+        seen = plan_recorder(router)
+        slots = len(range(0, n, -(-n // len(topo_p))))  # the plan's non-empty chunks
+        distinct = len(set(topo_p.devices))
+        before = router.stats()
+        counts = routed_engines(vs, vs_b, commit, bid, router, verifier_t, verifier_g, bls_rows, want)
+        # a bad signature in the second lane's chunk, before quorum, and 60 % of the power
+        second = -(-n // slots) + 5
+        routed_t = TorchBatchVerifier(router=router)
+        errs_t = negative_cases(vs, commit, bid, routed_t, bad_pos=second, quiet=True)
+        errs_g = negative_cases(vs, commit, bid, type(verifier_g)(router=router), bad_pos=second, quiet=True)
+        want_errs = negative_cases(vs, commit, bid, verifier_t, bad_pos=second, quiet=True)
+        require(errs_t == errs_g == want_errs, f"{what}: routed errors equal the unrouted ones: {errs_t} {want_errs}")
+        st = router.stats()
+        for name in ("ed25519_build_tables",):
+            require(counts["verify_commit (tabled, default provider)"].get(name) == distinct
+                    and counts["verify_commit_trusting"].get(name) == distinct,
+                    f"{what}: the tables built once a distinct device and set: {counts}")
+        for call, names in (("verify_commit (tabled, default provider)",
+                             ("ed25519_prepare_tabled", "ed25519_scan_tabled", "ed25519_finish")),
+                            ("verify_commit_trusting", ("ed25519_prepare_tabled", "ed25519_scan_tabled",
+                                                        "ed25519_finish")),
+                            ("verify_commit (generic)", ("ed25519_prepare", "ed25519_scan", "ed25519_finish")),
+                            ("BLSEngine.verify_rows", ("bls12_pairing_check",)),
+                            ("MerkleHasher.root", ("sha256_leaf_blocks",))):
+            require(all(counts[call].get(k) == slots for k in names), f"{what}: {call} launched each routed kernel "
+                                                                       f"once a slot ({slots}): {counts[call]}")
+        require(counts["verify_commit (generic)"].get("ed25519_prepare_tabled") is None
+                and counts["verify_commit (tabled, default provider)"].get("ed25519_prepare") is None,
+                f"{what}: each path ran its own kernels: {counts}")
+        require(counts["MerkleHasher.root"].get("merkle_inner_level") == inner_levels(len(leaves)),
+                f"the inner levels ran unrouted: {counts['MerkleHasher.root']}")
+        report[what] = {"slots": slots, "distinct_devices": distinct, "launches": counts, "errors": errs_t,
+                        "router": check_router(router, seen, what, True)}
+        require(st["collective_bundles"] > before["collective_bundles"], f"{what}: the bundles were collective")
+        print(f"  placed, {what} ({slots} slots): launches {counts}; negative cases with the bad row in the second "
+              f"lane: {[e[0] for e in errs_t]}, identical to the unrouted errors; router {report[what]['router']}")
+        if lanes_two is None:
+            lanes_two = (router, routed_t, type(verifier_g)(router=router), counts)
+
+    # 3. logical lanes under ValidatorSet.verify_commit
+    for path, inner in (("tabled", TorchBatchVerifier()), ("generic", type(verifier_g)())):
+        lr = MeshRouter(DeviceTopology.logical(4))
+        seen = plan_recorder(lr)
+        mv = MeshRoutedVerifier(inner, lr)
+        prev = get_default_provider()
+        set_default_provider(mv)
+        try:
+            c, _ = counted_run(lambda: vs.verify_commit(CHAIN, bid, HEIGHT, fresh(commit)))
+        finally:
+            set_default_provider(prev)
+        names = (("ed25519_prepare_tabled", "ed25519_scan_tabled", "ed25519_finish") if path == "tabled"
+                 else ("ed25519_prepare", "ed25519_scan", "ed25519_finish"))
+        require(all(c.get(k) == 4 for k in names), f"logical lanes, {path}: four launches of each kernel: {c}")
+        if path == "tabled":
+            got = mv.verify_rows_cached_templated(key, all_pk, vals_idx, *tpl, csig)
+            require(np.array_equal(got, want["ok_t"]), "logical lanes: tabled verdicts identical")
+        else:
+            got = mv.verify_commit_batch(all_pk[vals_idx], splice_ts(tpl), csig, cpow, ccnt)
+            require(np.array_equal(got[0], want["ok_g"]) and got[1] == want["tally_g"],
+                    "logical lanes: generic verdicts and tally identical")
+        report[f"logical lanes, {path}"] = {"launches": c, "router": check_router(lr, seen, f"logical {path}", True)}
+        print(f"  logical lanes (4), {path} path under verify_commit: launches {c}; verdicts identical")
+
+    # 4. a lane that fails: the inner verifier raises on the second slot
+    class FailSecondSlot(TorchBatchVerifier):
+        calls = 0
+
+        def verify_rows_cached_templated(self, *a):
+            self.calls += 1
+            if self.calls == 2:
+                raise RuntimeError("lane 1 down (injected by the smoke)")
+            return super().verify_rows_cached_templated(*a)
+
+    fr = MeshRouter(DeviceTopology.logical(4))
+    fr.topology.breakers = [CircuitBreaker(f"mesh.device{i}", failure_threshold=1, cooldown_s=3600.0)
+                            for i in range(4)]
+    mv = MeshRoutedVerifier(FailSecondSlot(), fr)
+    c_fail, got = counted_run(lambda: mv.verify_rows_cached_templated(key, all_pk, vals_idx, *tpl, csig))
+    st = fr.stats()
+    require(np.array_equal(got, want["ok_t"]), "a failed lane: the bundle's answer equals the unrouted one")
+    require(c_fail.get("ed25519_prepare_tabled") == 2 and c_fail.get("ed25519_scan_tabled") == 2
+            and c_fail.get("ed25519_finish") == 2,
+            f"a failed lane: the first slot's launches, then the bundle recomputed by the kernels: {c_fail}")
+    require(st["shard_failures"] == 1 and st["breakers"][1]["state"] == "open"
+            and [b["state"] for b in st["breakers"]].count("open") == 1,
+            f"a failed lane: one shard failure, that lane's breaker open: {st}")
+    rows1 = st["device_rows"][1]
+    got2 = mv.verify_rows_cached_templated(key, all_pk, vals_idx, *tpl, csig)
+    st2 = fr.stats()
+    require(np.array_equal(got2, want["ok_t"]) and st2["admitted"] == 3 and st2["device_rows"][1] == rows1
+            and st2["shard_failures"] == 1, f"the next bundle's plan omits the failed lane: {st2}")
+    report["a lane that fails"] = {"launches": c_fail, "stats_after": {k: st[k] for k in ("shard_failures",
+                                                                                          "device_rows")},
+                                   "next_bundle": {k: st2[k] for k in ("admitted", "sheds", "device_rows")}}
+    print(f"  a lane that fails (logical 4, lane 1 raises): answer identical, launches {c_fail}, "
+          f"shard_failures {st['shard_failures']}, breakers {[b['state'] for b in st['breakers']]}; the next "
+          f"bundle over {st2['admitted']} lanes, device_rows {st2['device_rows']}")
+
+    # 5. the cost of splitting a bundle: two lanes of this card
+    router, routed_t, routed_g, two_counts = lanes_two
+    before = router.stats()
+    seen = plan_recorder(router)
+    t50, t99, _wall = time_verify_commit(vs, commit, bid, routed_t, cold=True)
+    g50, g99, _wall = time_verify_commit(vs, commit, bid, routed_g, cold=True)
+    # one device and two lanes in turns, in this phase: verify_commit on
+    # fresh commits, the BLS pairing rows, the merkle root
+    paired = {
+        "verify_commit tabled": paired_ms(
+            lambda c: vs.verify_commit(CHAIN, bid, HEIGHT, c, provider=verifier_t),
+            lambda c: vs.verify_commit(CHAIN, bid, HEIGHT, c, provider=routed_t), lambda: fresh(commit), 30),
+        "verify_commit generic": paired_ms(
+            lambda c: vs.verify_commit(CHAIN, bid, HEIGHT, c, provider=verifier_g),
+            lambda c: vs.verify_commit(CHAIN, bid, HEIGHT, c, provider=routed_g), lambda: fresh(commit), 30),
+        "BLSEngine.verify_rows": paired_ms(
+            lambda e: e[0].verify_rows(bls_rows), lambda e: e[1].verify_rows(bls_rows),
+            lambda: (BLSEngine(), BLSEngine(router=router)), 5),
+        "MerkleHasher.root": paired_ms(
+            lambda h: h[0].root(leaves), lambda h: h[1].root(leaves),
+            lambda: (MerkleHasher(), MerkleHasher(router=router)), 10),
+    }
+    check_router(router, seen, "two lanes, timing", True, before)
+    # the kernels alone: one launch of each stage over every row, against
+    # one a lane over half the rows each, on device tensors
+    entry = routed_t.model.tables_entry(key, all_pk)
+    half = -(-n // 2)
+    dev = torch.device("cuda")
+    tsrc = {"idx": torch.from_numpy(vals_idx.astype(np.int32)).to(dev),
+            "templates": torch.from_numpy(np.array(tpl[0])).to(dev),
+            "tmpl_idx": torch.from_numpy(tpl[1].astype(np.int32)).to(dev),
+            "ts8": torch.from_numpy(np.array(tpl[2])).to(dev)}
+    tsig = torch.from_numpy(np.array(csig)).to(dev)
+    g = [torch.from_numpy(np.array(a)).to(dev) for a in (all_pk[vals_idx], splice_ts(tpl), csig)]
+    gp, gc = torch.from_numpy(np.asarray(cpow)).to(dev), torch.from_numpy(np.asarray(ccnt)).to(dev)
+
+    def lanes_of(fn, k):
+        bounds = [(lo, min(n, lo + -(-n // k))) for lo in range(0, n, -(-n // k))]
+        return lambda: [fn(lo, hi) for lo, hi in bounds]
+
+    def tabled_chunk(lo, hi):
+        src = {"idx": tsrc["idx"][lo:hi], "templates": tsrc["templates"], "tmpl_idx": tsrc["tmpl_idx"][lo:hi],
+               "ts8": tsrc["ts8"][lo:hi]}
+        return ed.verify_tabled(entry.tables, entry.a_ok, entry.pk, tsig[lo:hi], **src)
+
+    def generic_chunk(lo, hi):
+        return ed.verify_and_tally(*(x[lo:hi] for x in g), gp[lo:hi], gc[lo:hi])
+
+    kern = {path: {k: device_ms(lanes_of(fn, k), reps=10) for k in (1, 2)}
+            for path, fn in (("tabled", tabled_chunk), ("generic", generic_chunk))}
+    report["timing"] = {
+        "verify_commit_ms_p50_p99": {"tabled": {"one_device": list(unrouted_ms["tabled"]), "two_lanes": [t50, t99]},
+                                     "generic": {"one_device": list(unrouted_ms["generic"]),
+                                                 "two_lanes": [g50, g99]}},
+        "kernels_device_ms": {path: {"one_launch_a_stage": v[1], "two_lanes": v[2]} for path, v in kern.items()},
+        "in_turns_ms_p50_p99": {what: {"one_device": list(v[:2]), "two_lanes": list(v[2:])}
+                                for what, v in paired.items()},
+        "rows": n, "half": half, "card": card,
+    }
+    for path, (p50, p99), (r50, r99) in (("tabled", unrouted_ms["tabled"], (t50, t99)),
+                                         ("generic", unrouted_ms["generic"], (g50, g99))):
+        print(f"  two lanes on one card: the cost of splitting a bundle, not a multi-GPU figure: {path} "
+              f"verify_commit @{N_VALS} ({n} rows, {half} a lane), CUDA events p50 {r50:.3f} ms p99 {r99:.3f} ms "
+              f"over 30 fresh commits, against one device's p50 {p50:.3f} ms p99 {p99:.3f} ms (phase "
+              f"{5 if path == 'tabled' else 4}); the kernels alone {kern[path][2]:.4f} ms on the device for two "
+              f"lanes against {kern[path][1]:.4f} ms for one launch a stage ({card})")
+    for what, (a50, a99, b50, b99) in paired.items():
+        print(f"  two lanes on one card, in turns with one device: {what} p50 {b50:.3f} ms p99 {b99:.3f} ms against "
+              f"{a50:.3f} / {a99:.3f} ms ({card})")
+    for k in kernels.values():
+        k["launches_mesh_two_lanes"] = {call: c.get(k["name"], 0) for call, c in two_counts.items()
+                                        if c.get(k["name"], 0)}
+    print(json.dumps({"mesh": report}))
+    print(f"phase 9: passed in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1841,7 +2240,10 @@ def main() -> int:
     # -- phases 6 and 7: merkle roots and the light client ---------------------
     kernels.update(phase6(vs, commit, card))
     phase7(vs, by_addr, rng, card, kernels)
-    kernels.update(phase8(card, kernels))
+    bls_rows8, bls_rows = phase8(card, kernels)
+    kernels.update(bls_rows8)
+    phase9(vs, vs_b, commit, bid, card, kernels, bls_rows, verifier_t, verifier_g,
+           {"generic": (p50, p99), "tabled": (t50, t99)})
     for k in kernels.values():
         muls = "" if k["field_muls_per_row"] is None else f", {k['field_muls_per_row']} field muls/row"
         print(f"  {k['name']}: {k['ms']:.4f} ms ({k['ms_device_only']:.4f} on the device alone; plain "

@@ -16,14 +16,34 @@ commits and ``AggregatedCommit``s (one aggregate signature and a signer
 bitmap) through ``ValidatorSet.verify_commit``, on three CUDA kernels,
 the pairing check, the hash-to-G2 map and the G1 aggregate
 (``ops/bls12.py``, ``models/bls.py``, ``crypto/bls.py``), in sets of BLS
-keys or of BLS and ed25519 keys together. The package imports torch,
+keys or of BLS and ed25519 keys together; and the mesh runtime
+(``parallel/``: ``DeviceTopology``, ``MeshRouter``), which splits a
+bundle of rows over several devices for the verifier
+(``TorchBatchVerifier(router=...)``, ``MeshRoutedVerifier``), the BLS
+engine and the merkle engine, with the tally summed on the host. The
+package imports torch,
 numpy and the standard library, never jax and nothing of
 tendermint_tpu. Entry points run on the card unless the caller passes
 device="cpu".
 """
 
-from tendermint_tpu_torch.crypto.batch import BatchVerifier, TorchBatchVerifier, default_provider
-from tendermint_tpu_torch.crypto.bls import BLSBatchVerifier, BLSPrivKey, BLSPubKey, get_default_bls_provider
+from tendermint_tpu_torch.crypto.batch import (
+    BatchVerifier,
+    CPUBatchVerifier,
+    MeshRoutedVerifier,
+    TorchBatchVerifier,
+    default_provider,
+    get_default_provider,
+    make_provider,
+    set_default_provider,
+)
+from tendermint_tpu_torch.crypto.bls import (
+    BLSBatchVerifier,
+    BLSPrivKey,
+    BLSPubKey,
+    get_default_bls_provider,
+    make_bls_provider,
+)
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey, Ed25519PubKey
 from tendermint_tpu_torch.models.bls import BLSEngine
 from tendermint_tpu_torch.models.hasher import MerkleHasher
@@ -36,6 +56,7 @@ from tendermint_tpu_torch.ops.ed25519 import (
     verify_stage_scan,
     verify_stage_scan_tabled,
 )
+from tendermint_tpu_torch.parallel import DeviceTopology, MeshRouter
 from tendermint_tpu_torch.types.aggregate import AggregatedCommit, aggregate_commit_votes
 from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, Header, PartSetHeader
 from tendermint_tpu_torch.types.validator import Validator
@@ -57,9 +78,11 @@ __all__ = [
     "BLSPubKey",
     "BatchVerifier",
     "BlockID",
+    "CPUBatchVerifier",
     "Commit",
     "CommitSig",
     "CommitVerifySpec",
+    "DeviceTopology",
     "Ed25519PrivKey",
     "Ed25519PubKey",
     "ErrInvalidCommit",
@@ -67,6 +90,8 @@ __all__ = [
     "ErrNotEnoughVotingPower",
     "Header",
     "MerkleHasher",
+    "MeshRoutedVerifier",
+    "MeshRouter",
     "PartSetHeader",
     "TorchBatchVerifier",
     "Validator",
@@ -76,7 +101,11 @@ __all__ = [
     "build_valset_tables",
     "default_provider",
     "get_default_bls_provider",
+    "get_default_provider",
+    "make_bls_provider",
+    "make_provider",
     "resolve_device",
+    "set_default_provider",
     "verify_stage_finish",
     "verify_stage_prepare",
     "verify_stage_prepare_tabled",

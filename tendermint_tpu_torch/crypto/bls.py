@@ -237,15 +237,17 @@ def clear_possessions() -> None:
 class BLSBatchVerifier:
     """Batched min-pk verification over rectangular uint8 arrays:
     pubkeys (N, 48), msgs (N, L), sigs (N, 96) -> (N,) bool, on `device`
-    (None: the card; "cpu": the plain versions)."""
+    (None: the card; "cpu": the plain versions). With a `router`
+    (``parallel.topology.MeshRouter``) the engine splits its pairing
+    checks over the router's devices."""
 
     name = "bls"
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, router=None):
         from tendermint_tpu_torch.models.bls import BLSEngine
 
         self.device = resolve_device(device)
-        self.engine = BLSEngine(self.device)
+        self.engine = BLSEngine(self.device, router=router)
         self._pk_cache: Dict[bytes, object] = {}
         self._pk_cache_cap = 1 << 14
         self._lock = threading.Lock()
@@ -368,5 +370,7 @@ def set_default_bls_provider(v: BLSBatchVerifier, device=None) -> None:
         _DEFAULT[str(resolve_device(device))] = v
 
 
-def make_bls_provider(device=None) -> BLSBatchVerifier:
-    return BLSBatchVerifier(device)
+def make_bls_provider(device=None, router=None) -> BLSBatchVerifier:
+    """A BLS provider on `device` (None: the card) whose pairing checks
+    split over `router`'s devices (``models/bls.BLSEngine``)."""
+    return BLSBatchVerifier(device, router=router)

@@ -11,8 +11,11 @@ are hashed with ``hashlib``; trees at or above it go to a
 ``MerkleHasher`` (``models/hasher.py``) on the card unless the caller
 passes device="cpu". Unlike the JAX package there is no switch that
 keeps every tree on the host, and a device failure raises instead of
-being answered from the host. ``configure_device`` and the engine's
-counters are not here yet.
+being answered from the host. ``configure_device(router=...)`` hands the
+engine a ``parallel.topology.MeshRouter``, which splits the leaf stage of
+a qualifying tree over its devices (the router part of the JAX
+package's ``configure_device``); the engine's switches and counters are
+not here yet.
 
 Both routes build the tree level by level (``hasher.host_levels`` on the
 host) and read every proof's aunts off the levels. The level-by-level
@@ -36,6 +39,16 @@ _INNER_PREFIX = b"\x01"
 # Trees with at least this many leaves are hashed on the device. A
 # module attribute, read at each call, so tests can lower it.
 DEVICE_THRESHOLD = 1024
+
+# The MeshRouter handed in by configure_device (None: one device).
+_DEVICE_ROUTER = None
+
+
+def configure_device(router=None) -> None:
+    """Route the leaf stage of every device tree through `router` (a
+    ``parallel.topology.MeshRouter``); None takes it off again."""
+    global _DEVICE_ROUTER
+    _DEVICE_ROUTER = router
 
 
 def _sha(data: bytes) -> bytes:
@@ -66,7 +79,7 @@ def hash_from_byte_slices(items: Sequence[bytes], device=None) -> bytes:
     if not items:
         return _sha(b"")
     if len(items) >= DEVICE_THRESHOLD:
-        return MerkleHasher(device).root(items)
+        return MerkleHasher(device, router=_DEVICE_ROUTER).root(items)
     return host_levels([leaf_hash(it) for it in items])[-1][0]
 
 
@@ -130,7 +143,7 @@ def proofs_from_byte_slices(items: Sequence[bytes], device=None) -> tuple:
     if n == 0:
         return _sha(b""), []
     if n >= DEVICE_THRESHOLD:
-        levels = MerkleHasher(device).tree(items)
+        levels = MerkleHasher(device, router=_DEVICE_ROUTER).tree(items)
     else:
         levels = host_levels([leaf_hash(it) for it in items])
     aunts = _aunts_from_levels(levels)

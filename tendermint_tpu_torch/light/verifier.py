@@ -8,8 +8,8 @@ the trusted set at 1/3 :60, and the untrusted VerifyCommit :76), Verify
 (verifyNewHeaderAndVals :167): basic validity, height and time order,
 clock drift, the trusting period.
 
-Every entry point takes ``provider=None`` (the shared TorchBatchVerifier
-of `device`) and ``device=None`` (the card; "cpu" for the kernels' plain
+Every entry point takes ``provider=None`` (the default provider of
+`device`, ``crypto.batch.get_default_provider``) and ``device=None`` (the card; "cpu" for the kernels' plain
 versions), which reaches the validator-set hashes and the commit checks.
 A link's commit checks, and a whole chain's, go through
 ``lightserve.core`` in one device call.

@@ -12,12 +12,21 @@ launch costs more than the few hashes it would do. Pairing adjacent
 nodes and carrying an odd last one up is exactly the reference's
 split-point recursion (crypto/merkle.py).
 
+With a ``router`` (``parallel.topology.MeshRouter``) whose topology has
+placement, the leaf stage of a tree the router plans as collective runs
+per device (``_mesh_leaf_state``): slot [lo, hi) takes its leaves' own
+blocks, with the offsets rebased to 0, in one ``sha256_leaf_blocks``
+launch on its device; the (8, n) states are concatenated on the
+hasher's device and the inner levels run there, unrouted, as in the JAX
+engine. A failed routed leaf stage is answered by the single-device
+launch.
+
 Not copied from the JAX module, which needs them for XLA's compiles:
 the leaf-count buckets and their padding rows, the blocking and
 background compiles, the cold-bucket and shape declines (the kernels
 take any leaf count and any block count, so leaves above 16 blocks stay
-on the device here), the compile breaker and the mesh router. A failed
-launch raises; nothing answers from the host instead.
+on the device here) and the compile breaker. A failed launch raises;
+nothing answers from the host instead.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.ops import sha256
-from tendermint_tpu_torch.utils.device import resolve_device
+from tendermint_tpu_torch.utils.device import on_device, resolve_device
 
 # Inner levels at or below this width are finished by hashlib on the
 # host. A module attribute, read at each call, so tests can set it to 1
@@ -57,12 +66,23 @@ def _digests(state: torch.Tensor) -> List[bytes]:
     return [buf[i:i + 32] for i in range(0, len(buf), 32)]
 
 
+def _leaf_launch(blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Upload packed leaves to `dev` and launch the leaf kernel there:
+    the (8, n) int32 states on `dev`."""
+    b, o, c = (torch.from_numpy(np.ascontiguousarray(a)) for a in (blocks, offsets, counts))
+    with on_device(dev):
+        if dev.type == "cuda":
+            b, o, c = b.to(dev), o.to(dev), c.to(dev)
+        return sha256.leaf_block_states(b, c, o)
+
+
 class MerkleHasher:
     """``root(items)`` and ``tree(items)`` of a list of leaves (bytes) on
     `device` (None: the card; "cpu": the kernels' plain versions)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, router=None):
         self.device = resolve_device(device)
+        self.router = router
 
     def pack(self, items: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Leaves -> (blocks (T, 64) uint8, offsets (N,) int32, counts
@@ -70,16 +90,38 @@ class MerkleHasher:
         blocks (``sha256.pack_leaves``)."""
         return sha256.pack_leaves(items)
 
+    def _mesh_leaf_state(self, blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray):
+        """The leaf level split over the router's devices: the (8, n)
+        states on the hasher's device, or None to take the single-device
+        leaf launch. Leaf digests are independent of each other, so the
+        concatenation equals the single launch's states."""
+        r = self.router
+        if r is None or not r.topology.has_placement:
+            return None
+        plan = r.plan(counts.shape[0])
+        if not plan.collective:
+            return None
+
+        def dispatch(s):
+            first = int(offsets[s.lo])
+            nb = int(counts[s.lo:s.hi].sum())
+            return _leaf_launch(blocks[first:first + nb], (offsets[s.lo:s.hi] - first).astype(np.int32),
+                                counts[s.lo:s.hi], s.device)
+
+        try:
+            return r.run(plan, dispatch, lambda outs: torch.cat([o.to(self.device) for o in outs], dim=1))
+        except Exception:
+            return None
+
     def device_levels(self, blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray) -> List[torch.Tensor]:
         """Upload packed leaves and hash them: levels[l] the (8, width)
         int32 states of level l on the device, down to the first width
         <= HOST_TAIL_WIDTH (or one node)."""
-        b, o, c = (torch.from_numpy(a) for a in (blocks, offsets, counts))
-        if self.device.type == "cuda":
-            b, o, c = b.to(self.device), o.to(self.device), c.to(self.device)
-        levels = [sha256.leaf_block_states(b, c, o)]
-        while levels[-1].shape[1] > max(HOST_TAIL_WIDTH, 1):
-            levels.append(sha256.merkle_inner_level(levels[-1], levels[-1].shape[1]))
+        leaves = self._mesh_leaf_state(blocks, offsets, counts)
+        levels = [_leaf_launch(blocks, offsets, counts, self.device) if leaves is None else leaves]
+        with on_device(self.device):
+            while levels[-1].shape[1] > max(HOST_TAIL_WIDTH, 1):
+                levels.append(sha256.merkle_inner_level(levels[-1], levels[-1].shape[1]))
         return levels
 
     def root(self, items: Sequence[bytes]) -> bytes:

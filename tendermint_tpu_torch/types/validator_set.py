@@ -271,8 +271,10 @@ class ValidatorSet:
         Reference semantics (types/validator_set.go:629-668): signatures in
         order, fail on the first invalid one, succeed as soon as the tallied
         for-block power exceeds 2/3 of the total. `provider` defaults to the
-        shared TorchBatchVerifier on `device` (the card unless "cpu" is
-        asked for); BLS rows go to the shared BLSBatchVerifier there. An
+        default provider of `device` (the card unless "cpu" is asked for):
+        the one given to ``crypto.batch.set_default_provider``, else a
+        shared TorchBatchVerifier; BLS rows go to the shared
+        BLSBatchVerifier there. An
         AggregatedCommit goes to ``verify_aggregated_commit``.
         """
         from tendermint_tpu_torch.types.aggregate import AggregatedCommit

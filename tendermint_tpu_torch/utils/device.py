@@ -9,6 +9,7 @@ to it silently.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -29,3 +30,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_device(dev: torch.device):
+    """Make `dev` the current CUDA device for the launches under it (a
+    kernel goes to the current device's context, so a launch on another
+    device's stream must be made there); nothing on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
