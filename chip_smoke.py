@@ -92,6 +92,12 @@ Phases (any failure raises and ends the run with a nonzero exit):
    signer, a wrong aggregate signature, too little power; times and
    split. A mixed set of 64 ed25519 and 64 BLS validators: the tabled
    ed25519 kernels and the BLS map and pairing in one verify_commit.
+   The kernels' rows at the commit's 120 rows: the lane group G that
+   each of the map and pairing kernels was compiled with (the other G are
+   timed by scripts/bls_lane_sweep.py), each kernel's registers and stack
+   frame, the SASS of fp_mul in both of its forms, the Fp products one
+   row runs, counted on the host build of the kernels' headers (g++,
+   which must compute the kernels' values on the same row).
 9. The mesh runtime (tendermint_tpu_torch/parallel). DeviceTopology.
    discover() lists every CUDA device; with one, no plan is collective
    and each routed engine gives its unrouted results: verify_commit at
@@ -1004,8 +1010,9 @@ N_AGG = (128, 4096, 10_000)
 # root as two Fp powers); SvdW as RFC 9380's straight line; [H2] over its
 # NAF in Jacobian coordinates (a doubling 2 m2 + 5 s2, a mixed addition
 # 7 m2 + 4 s2) from an affine base; a G1 sum by complete mixed additions
-# (RCB15 algorithm 8: 11). What the kernels run instead is counted on the
-# plain version (fp_muls_per_row), which shares their formulas.
+# (RCB15 algorithm 8: 11). What the kernels run is counted on the host
+# build of their own headers (csrc/bls12_host.cc, whose portable fp_mul
+# counts): one row's Fp products, `kernel_fp_muls`.
 FP_MUL_PROBE = r"""
 #include "fp381.cuh"
 using namespace bls;
@@ -1021,35 +1028,42 @@ extern "C" __global__ void fp_mul_probe_2(const Fp* a, const Fp* b, Fp* r) {
   r[0] = u;
 }
 """
-# Where the toolkit has no cuobjdump: a limb product as IMAD.WIDE and a
-# 64-bit carry add (IADD3, IADD3.X), 288 of them, and the m_i.
+# Where the toolkit has no cuobjdump, a fixed model of a CIOS product,
+# independent of either form: a limb product as IMAD.WIDE and a 64-bit
+# carry add (IADD3, IADD3.X), 288 of them, and the m_i.
 FP381_MUL_INSTR_MODEL = 3 * (144 + 144) + 12
+FP_MUL_FORMS = {"kernels": (), "portable_u64": ("-DBLS_PORTABLE_FP",)}
 
 
 def fp_mul_instructions():
-    """(instructions, opcode counts) of one Fp multiplication (fp381.cuh's
-    fp_mul: CIOS and its final subtraction) in sm_90a SASS: a probe
-    kernel of two chained products less one of one, both fully unrolled,
-    so the static count is what a product issues (NOPs aside); or
-    (FP381_MUL_INSTR_MODEL, None) where the toolkit has no cuobjdump."""
+    """{form: (instructions, opcode counts)} of one Fp multiplication in
+    sm_90a SASS, in both forms fp381.cuh holds: the kernels' own (CIOS in
+    PTX carry chains and its final subtraction) and its portable twin
+    (u64 accumulators, compiled for the device with BLS_PORTABLE_FP). A
+    probe kernel of two chained products less one of one, both fully
+    unrolled, so the static count is what a product issues (NOPs aside).
+    None where the toolkit has no cuobjdump."""
     from pathlib import Path
 
     from tendermint_tpu_torch.ops import _build
 
     nvcc = Path(_build.nvcc_path())
     if not nvcc.with_name("cuobjdump").exists():
-        return FP381_MUL_INSTR_MODEL, None
+        return None
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = _build.BUILD_DIR / "fp_mul_probe.cu"
     src.write_text(FP_MUL_PROBE)
-    cubin = src.with_suffix(".cubin")
-    subprocess.run([str(nvcc), "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin",
-                    "-I", str(_build._CSRC), "-o", str(cubin), str(src)],
-                   capture_output=True, timeout=300, check=True)
-    one, two = (sass_opcodes(f"fp_mul_probe_{k}", cubin) for k in (1, 2))
-    diff = {op: two.get(op, 0) - one.get(op, 0) for op in set(one) | set(two) if op != "NOP"}
-    diff = {op: n for op, n in sorted(diff.items(), key=lambda kv: -kv[1]) if n}
-    return sum(diff.values()), diff
+    out = {}
+    for form, defines in FP_MUL_FORMS.items():
+        cubin = _build.BUILD_DIR / f"fp_mul_probe_{form}.cubin"
+        subprocess.run([str(nvcc), "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin", *defines,
+                        "-I", str(_build._CSRC), "-o", str(cubin), str(src)],
+                       capture_output=True, timeout=300, check=True)
+        one, two = (sass_opcodes(f"fp_mul_probe_{k}", cubin) for k in (1, 2))
+        diff = {op: two.get(op, 0) - one.get(op, 0) for op in set(one) | set(two) if op != "NOP"}
+        diff = {op: n for op, n in sorted(diff.items(), key=lambda kv: -kv[1]) if n}
+        out[form] = (sum(diff.values()), diff)
+    return out
 
 
 def window_pow_muls(e: int) -> int:
@@ -1116,17 +1130,39 @@ def bls_needed_fp_muls(ref) -> dict:
             "bls12_g1_aggregate": (11, inv + 2 - 11)}
 
 
-def fp_muls_per_row(stage) -> int:
-    """Fp multiplications (squarings included) one row costs in the
-    kernels' formulas, counted by running the plain version on one CPU
-    row: Karatsuba Fp2, schoolbook Fp6, Karatsuba Fp12 (its squares by
-    the general product), dense line products, two Miller loops,
-    complete additions, binary exponent walks."""
-    from tendermint_tpu_torch.ops import bls12 as bls
-
-    bls.FP_MUL_COUNT[0] = 0
+def kernel_fp_muls(host, stage) -> int:
+    """Fp multiplications (squarings included) one row runs in the
+    kernels' formulas: `stage` runs the row on the host build of the
+    kernels' headers (ops/bls12_host.py), whose fp_mul counts; the lanes'
+    products are the same whatever their number."""
+    host.reset_count()
     stage()
-    return bls.FP_MUL_COUNT[0]
+    return host.count()
+
+
+def ptxas_usage(kernel: str) -> dict:
+    """Registers, stack frame and cumulative stack (bytes) of `kernel` as
+    -Xptxas -v reported them for the current build."""
+    import re
+
+    from tendermint_tpu_torch.ops import _build
+
+    out, entry = {}, None
+    for line in _build.ptxas_log().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if kernel in m.group(1) else None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and "stack_frame" not in out:
+            out["stack_frame"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes cumulative stack size", line)
+        if m:
+            out["registers"], out["cumulative_stack"] = int(m.group(1)), int(m.group(2))
+            entry = None
+    return out
 
 
 def exceptional_u(ref):
@@ -1468,28 +1504,54 @@ def phase8(card, kernels):
     # -- the kernels' rows: times at the main path's shapes, bounds
     n_rows = len([i for i in rows_present if len(commit.signatures[i].signature) == 96])
     pk_t, hm_t, sg_t = (x[:n_rows].contiguous() for x in pair_inputs)
-    cpu = torch.device("cpu")
-    plain_muls = {
-        "bls12_pairing_check": fp_muls_per_row(lambda: bls.pairing_plain(pk_t[:1].to(cpu), hm_t[:1].to(cpu),
-                                                                         sg_t[:1].to(cpu))),
-    }
     u0, u1 = field_pairs(bls, ref, [rng.bytes(40) for _ in range(n_rows)])
-    plain_muls["bls12_map_to_g2"] = fp_muls_per_row(lambda: bls.map_plain(u0[:1].to(cpu), u1[:1].to(cpu)))
-    # one batch row, every point selected: the aggregated commit's shape
-    plain_agg = {v: fp_muls_per_row(lambda: bls.aggregate_plain(agg_inputs[v][0].to(cpu), agg_inputs[v][1][4:5].to(cpu)))
-                 for v in N_AGG}
     pts_v, mask1 = agg_inputs[N_AGG[0]][0], agg_inputs[N_AGG[0]][1][4:5].contiguous()
-    plain_muls["bls12_g1_aggregate"] = plain_agg[N_AGG[0]]
+    # the Fp products one row runs, on the host build of the kernels'
+    # headers, which computes the kernels' values: row 0 of each
+    from tendermint_tpu_torch.ops import _build
+    from tendermint_tpu_torch.ops.bls12_host import HostBLS
+
+    host = HostBLS(_build.BUILD_DIR / "bls12_host")
+    raw = lambda t: t.cpu().numpy().tobytes()  # noqa: E731
+    ok0, v0 = bls.pairing_check_rows(pk_t[:1], hm_t[:1], sg_t[:1])
+    q0, inf0 = bls.map_to_g2(u0[:1], u1[:1])
+    s0, sinf0 = bls.g1_aggregate(pts_v, mask1)
+    run_muls, host_out = {}, {}
+    run_muls["bls12_pairing_check"] = kernel_fp_muls(
+        host, lambda: host_out.update(pairing=host.pairing_row(raw(pk_t[0]), raw(hm_t[0]), raw(sg_t[0]))))
+    run_muls["bls12_map_to_g2"] = kernel_fp_muls(host, lambda: host_out.update(map=host.map_row(raw(u0[0]), raw(u1[0]))))
+    agg_run = {}
+    for v in N_AGG:
+        pv_, mv_ = agg_inputs[v]
+        agg_run[v] = kernel_fp_muls(host, lambda: host_out.update({v: host.g1_sum(raw(pv_), raw(mv_[4]))}))
+    run_muls["bls12_g1_aggregate"] = agg_run[N_AGG[0]]
+    require(host_out["pairing"] == (bool(ok0[0]), raw(v0[0])) and host_out["map"] == (raw(q0[0, 0]), raw(q0[0, 1]),
+                                                                                      bool(inf0[0]))
+            and host_out[N_AGG[0]] == (raw(s0[0]), bool(sinf0[0])),
+            "the host build of the kernels' headers computes the kernels' values")
     needed = bls_needed_fp_muls(ref)
     per_point, fixed = needed.pop("bls12_g1_aggregate")
     agg_muls = {v: per_point * int(agg_inputs[v][1][4].sum()) + fixed for v in N_AGG}
     muls = {**needed, "bls12_g1_aggregate": agg_muls[N_AGG[0]]}
-    mul_instr, mul_opcodes = fp_mul_instructions()
+    forms = fp_mul_instructions()
+    # the bound's product: the cheapest form of fp_mul the repo has, so a
+    # bound does not grow with the kernels' own product
+    mul_instr = FP381_MUL_INSTR_MODEL if forms is None else min(n for n, _ops in forms.values())
     ops_per_fp_mul = 2 * mul_instr  # each at the 32-bit integer rate, 2 operations (as SHA-256's)
-    print(f"  the bounds: an Fp multiplication {mul_instr} sm_90a instructions "
-          f"({'SASS of fp_mul: ' + str(mul_opcodes) if mul_opcodes else 'no cuobjdump: the model'}); Fp "
-          f"multiplications a row needed / run by the kernels' formulas: "
-          + ", ".join(f"{k} {muls[k]} / {plain_muls[k]}" for k in muls))
+    fp_mul_sass = None if forms is None else {form: n for form, (n, _ops) in forms.items()}
+    print(f"  the bounds: an Fp multiplication {mul_instr} sm_90a instructions, "
+          + ("the model (no cuobjdump)" if forms is None else
+             "the fewer of fp_mul's two forms, SASS: " + "; ".join(f"{form} {n} {ops}"
+                                                                  for form, (n, ops) in forms.items()))
+          + "; Fp multiplications a row needed / run by the kernels (counted on their host build): "
+          + ", ".join(f"{k} {muls[k]} / {run_muls[k]}" for k in muls)
+          + f"; the aggregate at {N_AGG}: " + " / ".join(f"{agg_muls[v]} / {agg_run[v]}" for v in N_AGG))
+    usage = {name: ptxas_usage(name) for name in bls.KERNELS}
+    print("  registers, stack frame and cumulative stack (bytes) by -Xptxas -v: "
+          + "; ".join(f"{k} {u.get('registers')} / {u.get('stack_frame')} / {u.get('cumulative_stack')}"
+                      for k, u in usage.items()))
+    kept = bls.lanes()
+    print("  lanes a row (G, compiled in): " + ", ".join(f"{k} {g}" for k, g in kept.items()))
     runs = {
         "bls12_pairing_check": (lambda: bls.pairing_check_rows(pk_t, hm_t, sg_t),
                                 lambda: bls.pairing_plain(pk_t, hm_t, sg_t), n_rows, 5),
@@ -1513,7 +1575,10 @@ def phase8(card, kernels):
                          io[name], ops, nrows, muls[name])
         row.update(replaces=replaces[name], replaces_also=also[name], ms_device_only=device_ms(kern, reps=reps),
                    launches_aggregated_commit=n_agg[name], launches_mixed_set=n_mix[name],
-                   ops_per_fp_mul=ops_per_fp_mul, fp_mul_sass=mul_opcodes, field_muls_per_row_formulas=plain_muls[name])
+                   ops_per_fp_mul=ops_per_fp_mul, fp_mul_sass_instructions=fp_mul_sass,
+                   fp_muls_per_row_run=run_muls[name], **usage[name])
+        if name in kept:
+            row["lanes"] = kept[name]
         rows_out[name] = row
     for v in N_AGG[1:]:
         pv_, mv_ = agg_inputs[v]
@@ -1521,6 +1586,7 @@ def phase8(card, kernels):
         rows_out["bls12_g1_aggregate"][f"ms_at_{v}"] = median_ms(lambda: bls.g1_aggregate(pv_, m1), reps=10, repeats=3)
         rows_out["bls12_g1_aggregate"][f"ms_device_only_at_{v}"] = device_ms(lambda: bls.g1_aggregate(pv_, m1), reps=10)
         rows_out["bls12_g1_aggregate"][f"bound_ms_at_{v}"] = 1e3 * agg_muls[v] * ops_per_fp_mul / INT32_MAD_OPS_PER_S
+        rows_out["bls12_g1_aggregate"][f"fp_muls_run_at_{v}"] = agg_run[v]
     for k in kernels.values():
         k["launches_bls_commit"] = n_sig.get(k["name"], 0)
         k["launches_bls_mixed_set"] = n_mix.get(k["name"], 0)

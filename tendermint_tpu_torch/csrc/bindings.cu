@@ -23,6 +23,7 @@ cudaError_t launch_scan_tabled(const int8_t*, const int8_t*, const int32_t*, con
 cudaError_t launch_sha256_leaf_blocks(const uint8_t*, const int32_t*, const int32_t*, int, int, uint32_t*, cudaStream_t);
 cudaError_t launch_merkle_inner_level(const uint32_t*, int, int, uint32_t*, cudaStream_t);
 cudaError_t set_bls_constants(const void* host, size_t bytes);
+void bls12_lanes(int* pairing, int* map);
 cudaError_t launch_bls12_pairing_check(const uint8_t*, const uint8_t*, const uint8_t*, int, int, uint8_t*, uint8_t*,
                                        cudaStream_t);
 cudaError_t launch_bls12_map_to_g2(const uint8_t*, const uint8_t*, int, uint8_t*, uint8_t*, cudaStream_t);
@@ -105,6 +106,10 @@ int tm_set_bls_constants(int device, const void* host, size_t bytes) {
   if (e != cudaSuccess) return (int)e;
   return (int)tmk::set_bls_constants(host, bytes);
 }
+
+// The lanes that work one row of the pairing and of the map kernel (G,
+// compiled in).
+void tm_bls12_lanes(int* pairing, int* map) { tmk::bls12_lanes(pairing, map); }
 
 int tm_bls12_pairing_check(const void* pk, const void* hm, const void* sig, int n, int pairs, void* value, void* ok,
                            void* stream) {

@@ -1,34 +1,47 @@
-// BLS12-381 field tower for the BLS kernels: Fp, Fp2 = Fp[u]/(u^2 + 1),
-// Fp6 = Fp2[v]/(v^3 - (1 + u)), Fp12 = Fp6[w]/(w^2 - v), the tower of
-// ops/ref_bls12.py.
+// BLS12-381 field arithmetic for the BLS kernels: Fp, and the Fp2 =
+// Fp[u]/(u^2 + 1) operations that one lane runs on its own (the SvdW map,
+// inversions, the G1 sum). Fp6 = Fp2[v]/(v^3 - (1 + u)) and Fp12 =
+// Fp6[w]/(w^2 - v), the tower of ops/ref_bls12.py, are cut into stages of
+// independent products in bls12_curve.cuh, where the lanes of a row share
+// them.
 //
-// Fp is 12 little-endian 32-bit limbs in Montgomery form with R = 2^384,
-// multiplied by CIOS with 32x32->64 multiply-adds in u64 accumulators.
-// Every value is kept fully reduced (< p) after every operation: p has
-// 381 bits, so the 3 spare bits are unused for now (lazy sums are later
-// work). The JAX package's form (33 limbs of 12 bits, R = 2^396, a 16p
+// Fp is 12 little-endian 32-bit limbs in Montgomery form with R = 2^384.
+// The product is CIOS: on the device each row of 12 limb products and each
+// reduction row is one PTX carry chain (mad.lo.cc / madc.hi.cc / addc), so
+// a carry costs no add of its own; on the host a portable twin with u64
+// accumulators computes the same value (and counts the products, for the
+// host build's Fp-product count of a row). Every value is kept canonical
+// (< p) after every operation: sums and differences end with one
+// conditional subtraction, also a carry chain on the device. p has 381
+// bits, so a sum of two canonical values never carries out of 384 bits.
+// The JAX package's form (33 limbs of 12 bits, R = 2^396, a 16p
 // subtraction offset, stacked products) was shaped by the TPU's int32
 // lanes and XLA's compile times and is not carried over.
 //
 // The curve and field constants (p, -p^-1 mod 2^32, R^2, the exponents of
-// inversion, square root and the Legendre symbol, SvdW's constants, the
-// Frobenius constants, the cofactor H2) are computed on the host from the
-// pure-Python oracle and copied into `c_bls` once per device
-// (ops/_build.py). Exponents are walked as words of that struct; the
-// Miller loop's parameter |x| is compiled in.
+// inversion, square root and the Legendre symbol (which no kernel reads),
+// SvdW's constants, the Frobenius constants, the cofactor H2) are
+// computed on the host from the pure-Python oracle and copied into `c_bls`
+// once per device (ops/_build.py). Powers walk their exponent by a
+// sliding window of 5 bits; the Miller loop's parameter |x| is compiled in.
 //
 // The functions are written for the device but also compile as host C++
-// (without nvcc), which is how their arithmetic can be exercised against
-// the oracle on a machine without a card.
+// (without nvcc, see csrc/bls12_host.cc), which is how their arithmetic is
+// held against the oracle on a machine without a card. Defining
+// BLS_PORTABLE_FP compiles the portable twins for the device too, so that
+// the two forms of the product can be compared on the card (chip_smoke.py's
+// fp_mul probe, scripts/bls_fp_mul_bench.py); the kernels never define it.
 #pragma once
 #include <stdint.h>
 
 #if defined(__CUDACC__)
 #define BLS_FN static __device__ __forceinline__
 #define BLS_NOINLINE static __device__ __noinline__
+#define BLS_UNROLL _Pragma("unroll")
 #else
 #define BLS_FN static inline
 #define BLS_NOINLINE static
+#define BLS_UNROLL
 #endif
 
 namespace bls {
@@ -37,13 +50,11 @@ constexpr int NL = 12;            // 32-bit limbs of an Fp element
 constexpr int FP_BYTES = 48;      // big-endian canonical encoding at the seams
 constexpr uint64_t X_ABS = 0xd201000000010000ull;  // |x|, x = -0xd201000000010000
 
-struct Fp { uint32_t v[NL]; };
+struct alignas(16) Fp { uint32_t v[NL]; };
 struct Fp2 { Fp c0, c1; };
-struct Fp6 { Fp2 c0, c1, c2; };
-struct Fp12 { Fp6 c0, c1; };
 
-// The host-computed constants (ops/_build.py bls_constants_blob packs
-// this struct field by field, in this order, as little-endian u32).
+// The host-computed constants (ops/bls12.py constants_blob packs this
+// struct field by field, in this order, as little-endian u32).
 struct Constants {
   uint32_t p[NL];
   uint32_t n0;                 // -p^-1 mod 2^32
@@ -69,11 +80,13 @@ struct Constants {
 };
 
 // Defined here for the one source that includes this header
-// (bls12_kernels.cu); a host build defines its own.
+// (bls12_kernels.cu); a host build defines its own, and the count of Fp
+// products that only the host build keeps.
 #if defined(__CUDACC__)
 static __constant__ Constants c_bls;
 #else
 extern Constants c_bls;
+extern uint64_t fp_mul_count;
 #endif
 
 // -- Fp ------------------------------------------------------------------------
@@ -111,25 +124,107 @@ BLS_FN bool fp_is_one(const Fp& a) {
   return acc == 0;
 }
 
-// r = a - p if a >= p (a < 2p), given the carry out of the limbs above.
+#if defined(__CUDA_ARCH__) && !defined(BLS_PORTABLE_FP)
+// The carry chains. Each step is its own volatile asm statement, kept in
+// order, and nothing between two steps touches the carry flag.
+#define BLS_ASM(...) asm volatile(__VA_ARGS__)
+
+// r = t - p if t >= p (t < 2p fits 12 limbs).
+BLS_FN void fp_reduce_once(Fp& r, const uint32_t* t) {
+  uint32_t d[NL], bw;
+  const uint32_t zero = 0;
+  BLS_ASM("sub.cc.u32 %0, %1, %2;" : "=r"(d[0]) : "r"(t[0]), "r"(c_bls.p[0]));
+#pragma unroll
+  for (int i = 1; i < NL; ++i) BLS_ASM("subc.cc.u32 %0, %1, %2;" : "=r"(d[i]) : "r"(t[i]), "r"(c_bls.p[i]));
+  BLS_ASM("subc.u32 %0, %1, %1;" : "=r"(bw) : "r"(zero));
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = bw ? t[i] : d[i];
+}
+
+BLS_FN void fp_add(Fp& r, const Fp& a, const Fp& b) {
+  uint32_t t[NL];
+  BLS_ASM("add.cc.u32 %0, %1, %2;" : "=r"(t[0]) : "r"(a.v[0]), "r"(b.v[0]));
+#pragma unroll
+  for (int i = 1; i < NL; ++i) BLS_ASM("addc.cc.u32 %0, %1, %2;" : "=r"(t[i]) : "r"(a.v[i]), "r"(b.v[i]));
+  fp_reduce_once(r, t);
+}
+
+BLS_FN void fp_sub(Fp& r, const Fp& a, const Fp& b) {
+  uint32_t t[NL], bw;
+  const uint32_t zero = 0;
+  BLS_ASM("sub.cc.u32 %0, %1, %2;" : "=r"(t[0]) : "r"(a.v[0]), "r"(b.v[0]));
+#pragma unroll
+  for (int i = 1; i < NL; ++i) BLS_ASM("subc.cc.u32 %0, %1, %2;" : "=r"(t[i]) : "r"(a.v[i]), "r"(b.v[i]));
+  BLS_ASM("subc.u32 %0, %1, %1;" : "=r"(bw) : "r"(zero));
+  // a - b < 0: add p back
+  uint32_t pm[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) pm[i] = c_bls.p[i] & bw;
+  BLS_ASM("add.cc.u32 %0, %0, %1;" : "+r"(t[0]) : "r"(pm[0]));
+#pragma unroll
+  for (int i = 1; i < NL; ++i) BLS_ASM("addc.cc.u32 %0, %0, %1;" : "+r"(t[i]) : "r"(pm[i]));
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = t[i];
+}
+
+// CIOS Montgomery product: r = a b / R mod p, for a, b < p. t stays below
+// 2p < 2^382 between rows, so t[12] never carries out.
+BLS_FN void fp_mul(Fp& r, const Fp& a, const Fp& b) {
+  uint32_t t[NL + 1];
+#pragma unroll
+  for (int i = 0; i < NL + 1; ++i) t[i] = 0;
+  const uint32_t n0 = c_bls.n0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t bi = b.v[i];
+    BLS_ASM("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[0]) : "r"(a.v[0]), "r"(bi));
+#pragma unroll
+    for (int j = 1; j < NL; ++j) BLS_ASM("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[j]) : "r"(a.v[j]), "r"(bi));
+    BLS_ASM("addc.u32 %0, %0, 0;" : "+r"(t[NL]));
+    BLS_ASM("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(a.v[0]), "r"(bi));
+#pragma unroll
+    for (int j = 1; j < NL - 1; ++j)
+      BLS_ASM("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[j + 1]) : "r"(a.v[j]), "r"(bi));
+    BLS_ASM("madc.hi.u32 %0, %1, %2, %0;" : "+r"(t[NL]) : "r"(a.v[NL - 1]), "r"(bi));
+    const uint32_t m = t[0] * n0;
+    BLS_ASM("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[0]) : "r"(m), "r"(c_bls.p[0]));
+#pragma unroll
+    for (int j = 1; j < NL; ++j) BLS_ASM("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(t[j]) : "r"(m), "r"(c_bls.p[j]));
+    BLS_ASM("addc.u32 %0, %0, 0;" : "+r"(t[NL]));
+    BLS_ASM("mad.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[1]) : "r"(m), "r"(c_bls.p[0]));
+#pragma unroll
+    for (int j = 1; j < NL - 1; ++j)
+      BLS_ASM("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(t[j + 1]) : "r"(m), "r"(c_bls.p[j]));
+    BLS_ASM("madc.hi.u32 %0, %1, %2, %0;" : "+r"(t[NL]) : "r"(m), "r"(c_bls.p[NL - 1]));
+#pragma unroll
+    for (int j = 0; j < NL; ++j) t[j] = t[j + 1];
+    t[NL] = 0;
+  }
+  fp_reduce_once(r, t);
+}
+#undef BLS_ASM
+#else
+// The portable twins: the same values by u64 accumulators.
+
+// r = t - p if t >= p (t < 2p), given the carry out of the limbs above.
 BLS_FN void fp_reduce_once(Fp& r, const uint32_t* t, uint32_t top) {
   uint32_t d[NL];
   int64_t borrow = 0;
-#pragma unroll
+  BLS_UNROLL
   for (int i = 0; i < NL; ++i) {
     int64_t s = (int64_t)t[i] - c_bls.p[i] + borrow;
     d[i] = (uint32_t)s;
     borrow = s >> 32;  // 0 or -1
   }
   const bool ge = top != 0 || borrow == 0;
-#pragma unroll
+  BLS_UNROLL
   for (int i = 0; i < NL; ++i) r.v[i] = ge ? d[i] : t[i];
 }
 
 BLS_FN void fp_add(Fp& r, const Fp& a, const Fp& b) {
   uint32_t t[NL];
   uint64_t c = 0;
-#pragma unroll
+  BLS_UNROLL
   for (int i = 0; i < NL; ++i) {
     c += (uint64_t)a.v[i] + b.v[i];
     t[i] = (uint32_t)c;
@@ -141,16 +236,15 @@ BLS_FN void fp_add(Fp& r, const Fp& a, const Fp& b) {
 BLS_FN void fp_sub(Fp& r, const Fp& a, const Fp& b) {
   uint32_t t[NL];
   int64_t borrow = 0;
-#pragma unroll
+  BLS_UNROLL
   for (int i = 0; i < NL; ++i) {
     int64_t s = (int64_t)a.v[i] - b.v[i] + borrow;
     t[i] = (uint32_t)s;
     borrow = s >> 32;
   }
-  // a - b < 0: add p back
   const uint32_t mask = borrow ? 0xffffffffu : 0u;
   uint64_t c = 0;
-#pragma unroll
+  BLS_UNROLL
   for (int i = 0; i < NL; ++i) {
     c += (uint64_t)t[i] + (c_bls.p[i] & mask);
     r.v[i] = (uint32_t)c;
@@ -158,25 +252,17 @@ BLS_FN void fp_sub(Fp& r, const Fp& a, const Fp& b) {
   }
 }
 
-BLS_FN void fp_neg(Fp& r, const Fp& a) {
-  Fp z;
-  fp_zero(z);
-  fp_sub(r, z, a);
-}
-
-BLS_FN void fp_dbl(Fp& r, const Fp& a) { fp_add(r, a, a); }
-
-// CIOS Montgomery product: r = a b / R mod p, for a, b < p.
 BLS_FN void fp_mul(Fp& r, const Fp& a, const Fp& b) {
-  uint32_t t[NL + 2];
-#pragma unroll
-  for (int i = 0; i < NL + 2; ++i) t[i] = 0;
+#if !defined(__CUDACC__)
+  ++fp_mul_count;
+#endif
+  uint32_t t[NL + 2] = {0};
   const uint32_t n0 = c_bls.n0;
-#pragma unroll
+  BLS_UNROLL
   for (int i = 0; i < NL; ++i) {
     uint64_t c = 0;
     const uint32_t bi = b.v[i];
-#pragma unroll
+    BLS_UNROLL
     for (int j = 0; j < NL; ++j) {
       c += (uint64_t)a.v[j] * bi + t[j];
       t[j] = (uint32_t)c;
@@ -188,7 +274,7 @@ BLS_FN void fp_mul(Fp& r, const Fp& a, const Fp& b) {
     const uint32_t m = t[0] * n0;
     c = (uint64_t)m * c_bls.p[0] + t[0];
     c >>= 32;
-#pragma unroll
+    BLS_UNROLL
     for (int j = 1; j < NL; ++j) {
       c += (uint64_t)m * c_bls.p[j] + t[j];
       t[j - 1] = (uint32_t)c;
@@ -200,16 +286,52 @@ BLS_FN void fp_mul(Fp& r, const Fp& a, const Fp& b) {
   }
   fp_reduce_once(r, t, t[NL]);
 }
+#endif
+
+BLS_FN void fp_neg(Fp& r, const Fp& a) {
+  Fp z;
+  fp_zero(z);
+  fp_sub(r, z, a);
+}
+
+BLS_FN void fp_dbl(Fp& r, const Fp& a) { fp_add(r, a, a); }
 
 BLS_FN void fp_sqr(Fp& r, const Fp& a) { fp_mul(r, a, a); }
 
-// a^e for the exponent words e (little-endian), its top `bits` bits.
+BLS_FN bool exp_bit(const uint32_t* e, int i) { return (e[i >> 5] >> (i & 31)) & 1; }
+
+// a^e for the exponent words e (little-endian) below bit `bits`, by a
+// left-to-right sliding window of 5 bits over the odd powers a, a^3, ...,
+// a^31. 0^e = 0.
 BLS_NOINLINE void fp_pow(Fp& r, const Fp& a, const uint32_t* e, int bits) {
+  constexpr int W = 5;
+  Fp odd[1 << (W - 1)], a2;
+  odd[0] = a;
+  fp_sqr(a2, a);
+  for (int k = 1; k < (1 << (W - 1)); ++k) fp_mul(odd[k], odd[k - 1], a2);
+  int i = bits - 1;
+  while (i >= 0 && !exp_bit(e, i)) --i;
   Fp acc;
   fp_one(acc);
-  for (int i = bits - 1; i >= 0; --i) {
-    fp_sqr(acc, acc);
-    if ((e[i >> 5] >> (i & 31)) & 1) fp_mul(acc, acc, a);
+  bool first = true;
+  while (i >= 0) {
+    if (!exp_bit(e, i)) {
+      fp_sqr(acc, acc);
+      --i;
+      continue;
+    }
+    int j = i - W + 1 > 0 ? i - W + 1 : 0;
+    while (!exp_bit(e, j)) ++j;
+    uint32_t w = 0;
+    for (int k = i; k >= j; --k) w = (w << 1) | (exp_bit(e, k) ? 1u : 0u);
+    if (first) {
+      acc = odd[w >> 1];
+      first = false;
+    } else {
+      for (int k = i; k >= j; --k) fp_sqr(acc, acc);
+      fp_mul(acc, acc, odd[w >> 1]);
+    }
+    i = j - 1;
   }
   r = acc;
 }
@@ -219,13 +341,6 @@ BLS_FN void fp_inv(Fp& r, const Fp& a) { fp_pow(r, a, c_bls.e_inv, 32 * NL); }
 
 // a^((p+1)/4): the square root of a when a is a square (p = 3 mod 4).
 BLS_FN void fp_sqrt_cand(Fp& r, const Fp& a) { fp_pow(r, a, c_bls.e_sqrt, 32 * NL); }
-
-// Euler's criterion; 0 counts as a square.
-BLS_FN bool fp_is_square(const Fp& a) {
-  Fp l;
-  fp_pow(l, a, c_bls.e_legendre, 32 * NL);
-  return fp_is_one(l) || fp_is_zero(a);
-}
 
 // Canonical value (out of Montgomery form) as 48 big-endian bytes.
 BLS_FN void fp_to_bytes(uint8_t* out, const Fp& a) {
@@ -328,12 +443,6 @@ BLS_NOINLINE void f2_sqr(Fp2& r, const Fp2& a) {
   fp_dbl(r.c1, t);
 }
 
-// a * s for s in Fp
-BLS_FN void f2_mul_fp(Fp2& r, const Fp2& a, const Fp& s) {
-  fp_mul(r.c0, a.c0, s);
-  fp_mul(r.c1, a.c1, s);
-}
-
 // a * (1 + u) = (c0 - c1) + (c0 + c1) u
 BLS_FN void f2_mul_xi(Fp2& r, const Fp2& a) {
   Fp t0, t1;
@@ -350,20 +459,20 @@ BLS_FN void f2_norm(Fp& r, const Fp2& a) {
   fp_add(r, t0, t1);
 }
 
-// conj(a) / norm(a); 0 -> 0
-BLS_NOINLINE void f2_inv(Fp2& r, const Fp2& a) {
-  Fp n, ni, t;
-  f2_norm(n, a);
-  fp_inv(ni, n);
-  fp_mul(r.c0, a.c0, ni);
+// conj(a) * s, for s = 1 / norm(a): the inverse of a; 0 -> 0
+BLS_FN void f2_conj_scale(Fp2& r, const Fp2& a, const Fp& s) {
+  Fp t;
+  fp_mul(r.c0, a.c0, s);
   fp_neg(t, a.c1);
-  fp_mul(r.c1, t, ni);
+  fp_mul(r.c1, t, s);
 }
 
-BLS_FN bool f2_is_square(const Fp2& a) {
-  Fp n;
+// conj(a) / norm(a); 0 -> 0
+BLS_NOINLINE void f2_inv(Fp2& r, const Fp2& a) {
+  Fp n, ni;
   f2_norm(n, a);
-  return fp_is_square(n);
+  fp_inv(ni, n);
+  f2_conj_scale(r, a, ni);
 }
 
 // The oracle's square root (ref_bls12.f2_sqrt), the same root chosen,
@@ -409,159 +518,6 @@ BLS_FN uint32_t f2_sgn0(const Fp2& a) {
   const uint32_t s0 = fp_parity(a.c0);
   const uint32_t z0 = fp_is_zero(a.c0) ? 1u : 0u;
   return s0 | (z0 & fp_parity(a.c1));
-}
-
-// -- Fp6 -----------------------------------------------------------------------
-
-BLS_FN void f6_add(Fp6& r, const Fp6& a, const Fp6& b) {
-  f2_add(r.c0, a.c0, b.c0);
-  f2_add(r.c1, a.c1, b.c1);
-  f2_add(r.c2, a.c2, b.c2);
-}
-
-BLS_FN void f6_sub(Fp6& r, const Fp6& a, const Fp6& b) {
-  f2_sub(r.c0, a.c0, b.c0);
-  f2_sub(r.c1, a.c1, b.c1);
-  f2_sub(r.c2, a.c2, b.c2);
-}
-
-BLS_FN void f6_neg(Fp6& r, const Fp6& a) {
-  f2_neg(r.c0, a.c0);
-  f2_neg(r.c1, a.c1);
-  f2_neg(r.c2, a.c2);
-}
-
-// Schoolbook with v^3 = xi (ref_bls12.f6_mul).
-BLS_NOINLINE void f6_mul(Fp6& r, const Fp6& a, const Fp6& b) {
-  Fp2 t00, t01, t02, t03, t04, m;
-  f2_mul(t00, a.c0, b.c0);
-  f2_mul(t01, a.c0, b.c1);
-  f2_mul(m, a.c1, b.c0);
-  f2_add(t01, t01, m);
-  f2_mul(t02, a.c0, b.c2);
-  f2_mul(m, a.c1, b.c1);
-  f2_add(t02, t02, m);
-  f2_mul(m, a.c2, b.c0);
-  f2_add(t02, t02, m);
-  f2_mul(t03, a.c1, b.c2);
-  f2_mul(m, a.c2, b.c1);
-  f2_add(t03, t03, m);
-  f2_mul(t04, a.c2, b.c2);
-  f2_mul_xi(t03, t03);
-  f2_mul_xi(t04, t04);
-  f2_add(r.c0, t00, t03);
-  f2_add(r.c1, t01, t04);
-  r.c2 = t02;
-}
-
-// a v: (c0, c1, c2) -> (xi c2, c0, c1)
-BLS_FN void f6_mul_by_v(Fp6& r, const Fp6& a) {
-  Fp2 t;
-  f2_mul_xi(t, a.c2);
-  r.c2 = a.c1;
-  r.c1 = a.c0;
-  r.c0 = t;
-}
-
-BLS_NOINLINE void f6_inv(Fp6& r, const Fp6& a) {
-  Fp2 c0, c1, c2, t, u;
-  f2_sqr(c0, a.c0);
-  f2_mul(t, a.c1, a.c2);
-  f2_mul_xi(t, t);
-  f2_sub(c0, c0, t);
-  f2_sqr(c1, a.c2);
-  f2_mul_xi(c1, c1);
-  f2_mul(t, a.c0, a.c1);
-  f2_sub(c1, c1, t);
-  f2_sqr(c2, a.c1);
-  f2_mul(t, a.c0, a.c2);
-  f2_sub(c2, c2, t);
-  f2_mul(t, a.c2, c1);
-  f2_mul(u, a.c1, c2);
-  f2_add(t, t, u);
-  f2_mul_xi(t, t);
-  f2_mul(u, a.c0, c0);
-  f2_add(t, t, u);
-  f2_inv(t, t);
-  f2_mul(r.c0, c0, t);
-  f2_mul(r.c1, c1, t);
-  f2_mul(r.c2, c2, t);
-}
-
-// -- Fp12 ----------------------------------------------------------------------
-
-BLS_FN void f12_one(Fp12& r) {
-  f2_one(r.c0.c0);
-  f2_zero(r.c0.c1);
-  f2_zero(r.c0.c2);
-  f2_zero(r.c1.c0);
-  f2_zero(r.c1.c1);
-  f2_zero(r.c1.c2);
-}
-
-// Karatsuba over Fp6 with w^2 = v.
-BLS_NOINLINE void f12_mul(Fp12& r, const Fp12& a, const Fp12& b) {
-  Fp6 t0, t1, sa, sb, c1;
-  f6_mul(t0, a.c0, b.c0);
-  f6_mul(t1, a.c1, b.c1);
-  f6_add(sa, a.c0, a.c1);
-  f6_add(sb, b.c0, b.c1);
-  f6_mul(c1, sa, sb);
-  f6_sub(c1, c1, t0);
-  f6_sub(r.c1, c1, t1);
-  f6_mul_by_v(t1, t1);
-  f6_add(r.c0, t0, t1);
-}
-
-BLS_FN void f12_sqr(Fp12& r, const Fp12& a) { f12_mul(r, a, a); }
-
-BLS_FN void f12_conj(Fp12& r, const Fp12& a) {
-  r.c0 = a.c0;
-  f6_neg(r.c1, a.c1);
-}
-
-BLS_NOINLINE void f12_inv(Fp12& r, const Fp12& a) {
-  Fp6 s0, s1, t;
-  f6_mul(s0, a.c0, a.c0);
-  f6_mul(s1, a.c1, a.c1);
-  f6_mul_by_v(s1, s1);
-  f6_sub(t, s0, s1);
-  f6_inv(t, t);
-  f6_mul(r.c0, a.c0, t);
-  f6_mul(s1, a.c1, t);
-  f6_neg(r.c1, s1);
-}
-
-// a^p: conjugate each Fp2 coefficient, times the structure constants.
-BLS_NOINLINE void f12_frobenius(Fp12& r, const Fp12& a) {
-  const Fp2* in0 = &a.c0.c0;
-  const Fp2* in1 = &a.c1.c0;
-  Fp2* out0 = &r.c0.c0;
-  Fp2* out1 = &r.c1.c0;
-  for (int j = 0; j < 3; ++j) {
-    Fp2 t, k;
-    f2_conj(t, in0[j]);
-    f2_copy(k, c_bls.frob_v[j]);
-    f2_mul(out0[j], t, k);
-    f2_conj(t, in1[j]);
-    f2_copy(k, c_bls.frob_vw[j]);
-    f2_mul(out1[j], t, k);
-  }
-}
-
-BLS_FN bool f12_is_one(const Fp12& a) {
-  return fp_is_one(a.c0.c0.c0) && fp_is_zero(a.c0.c0.c1) && f2_is_zero(a.c0.c1) && f2_is_zero(a.c0.c2) &&
-         f2_is_zero(a.c1.c0) && f2_is_zero(a.c1.c1) && f2_is_zero(a.c1.c2);
-}
-
-// The 12 canonical coefficients as (2, 3, 2, 48) bytes: the JAX
-// package's Fp12 layout (c0/c1 over w, then v^0..v^2, then c0/c1 over u).
-BLS_FN void f12_to_bytes(uint8_t* out, const Fp12& a) {
-  const Fp2* c = &a.c0.c0;
-  for (int j = 0; j < 6; ++j) {
-    fp_to_bytes(out + (2 * j) * FP_BYTES, c[j].c0);
-    fp_to_bytes(out + (2 * j + 1) * FP_BYTES, c[j].c1);
-  }
 }
 
 }  // namespace bls

@@ -121,6 +121,8 @@ def _declare(lib) -> None:
     lib.tm_sha256_leaf_blocks.argtypes = [vp, vp, vp, i32, i32, vp, vp]
     lib.tm_merkle_inner_level.argtypes = [vp, i32, i32, vp, vp]
     lib.tm_set_bls_constants.argtypes = [i32, vp, sz]
+    lib.tm_bls12_lanes.argtypes = [vp, vp]
+    lib.tm_bls12_lanes.restype = None
     lib.tm_bls12_pairing_check.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp]
     lib.tm_bls12_map_to_g2.argtypes = [vp, vp, i32, vp, vp, vp]
     lib.tm_bls12_g1_aggregate.argtypes = [vp, vp, i32, i32, vp, vp, vp]

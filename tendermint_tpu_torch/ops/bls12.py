@@ -28,7 +28,9 @@ conjugation for the negative x. Verdicts are the oracle's.
 Each wrapper checks device, dtype, shape and contiguity, runs the plain
 version for a tensor on the CPU and launches its kernel for a tensor on
 the card (or raises: there is no fallback from one to the other).
-``<wrapper>.launches`` counts kernel launches and nothing else.
+``<wrapper>.launches`` counts kernel launches and nothing else. The map
+and pairing kernels work a row on a group of G lanes of one warp, or on
+a block of warps; each kernel's G is compiled in (``lanes`` reads it).
 
 The plain versions run on int64 tensors, vectorised over rows, in their
 own representation (the kernels' is 12 x 32-bit Montgomery limbs, which
@@ -183,11 +185,6 @@ def _c(x: torch.Tensor) -> dict:
     return _consts(str(x.device))
 
 
-# Fp multiplications of the plain versions, for the kernels' bounds:
-# each call adds the number of Fp products it computes (all rows).
-FP_MUL_COUNT = [0]
-
-
 @lru_cache(maxsize=None)
 def _keep_mask(n: int, device_str: str) -> torch.Tensor:
     """For a pass over n limbs: keep the low 26 bits of every limb but
@@ -221,7 +218,6 @@ def _cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook product columns (..., 16) x (..., 16) -> (..., 33): the
     31 columns and two zero limbs for the carries."""
     a, b = torch.broadcast_tensors(a, b)
-    FP_MUL_COUNT[0] += a.numel() // NLIMB
     outer = a.unsqueeze(-1) * b.unsqueeze(-2)  # (..., 16, 16)
     n = NLIMB
     # skew row i right by i: pad to (n, 2n + 2), flatten, regroup by 2n + 1
@@ -682,6 +678,18 @@ def g1_aggregate(points: torch.Tensor, mask: torch.Tensor):
                                              inf.data_ptr(), _stream(dev)), "bls12_g1_aggregate launch")
         g1_aggregate.launches += 1
     return out, inf
+
+
+def lanes(device=None) -> dict:
+    """The lanes G that work one row of the pairing and of the map kernel,
+    as compiled into the library (loads it on `device`, default cuda)."""
+    import ctypes
+
+    dev = torch.device("cuda" if device is None else device)
+    lib = _lib(dev)
+    pairing, mapped = ctypes.c_int(), ctypes.c_int()
+    lib.tm_bls12_lanes(ctypes.byref(pairing), ctypes.byref(mapped))
+    return {"bls12_pairing_check": pairing.value, "bls12_map_to_g2": mapped.value}
 
 
 def map_to_g2(u0: torch.Tensor, u1: torch.Tensor):
