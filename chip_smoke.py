@@ -7,8 +7,8 @@ Phases (any failure raises and ends the run with a nonzero exit):
 
 1. Print the card's name and power limit (nvidia-smi), build the eleven
    kernels (six ed25519, two SHA-256, three BLS12-381) from
-   tendermint_tpu_torch/csrc (nvcc, sm_90a), with each kernel's registers
-   and stack frame (-Xptxas -v).
+   tendermint_tpu_torch/csrc (nvcc, sm_90a), with each kernel's registers,
+   spills and stack frame (-Xptxas -v).
 2. Hold each kernel against its plain PyTorch version, on the card, on
    one 1,024-row batch of honest and adversarial rows (s + L, flipped R,
    s and message bits, an undecodable key, a non-canonical A.y, small-order
@@ -33,7 +33,8 @@ Phases (any failure raises and ends the run with a nonzero exit):
 5. The per-valset tabled path, which verify_commit takes by default: the
    same commit through ValidatorSet.verify_commit with
    TorchBatchVerifier(), whose first call builds the set's tables (build
-   time and peak device memory printed); counts set to 0 just before
+   time and peak device memory printed, and the build's own peak beside
+   its outputs); counts set to 0 just before
    and read just after, the tabled kernels and ed25519_finish must have
    moved. The same negative cases, during which the generic prepare and
    scan must not launch. verify_commit_trusting of the commit against a
@@ -42,7 +43,10 @@ Phases (any failure raises and ends the run with a nonzero exit):
    byte seams, at the main path's shapes (all 10,000 validators' tables,
    the 9,510 present rows read through their validator index, templated
    sign-bytes) and on the 1,024-row adversarial batch with its keys as
-   the set (row r is validator r, a message matrix). Timing as in 4.
+   the set (row r is validator r, a message matrix). Timing as in 4. The
+   lane group G that ed25519_scan and ed25519_build_tables were compiled
+   with (the other G are timed by scripts/ed25519_lane_sweep.py), and the
+   two kernels' registers, spill stores and loads and stack frame.
 6. The merkle kernels (sha256_leaf_blocks, merkle_inner_level) against
    their plain versions, exactly at the (8, N) state seams, with every
    level on the card: on the 10,000 validators' leaves, on the
@@ -69,7 +73,9 @@ Phases (any failure raises and ends the run with a nonzero exit):
    quorum in h2 (ErrInvalidCommitSignature out of verify_chain), each
    with the JAX package's class and message. Timing: p50 of verify
    (adjacent) and of verify_chain over warm runs on fresh objects, and
-   the validator-set hash's share of an adjacent step.
+   the validator-set hash's share of an adjacent step; ed25519_scan alone
+   on the device at the rows of verify_chain's generic batch (about
+   28,500), held against its plain version there.
 
 8. BLS12-381 at 128 validators (keys from seeds, each proof of
    possession made and registered through the port's
@@ -125,7 +131,10 @@ Phases (any failure raises and ends the run with a nonzero exit):
 
 Before the last line it prints one JSON object with a row per kernel
 (launches, max_abs_err, ms, plain_ms, bound_ms, ...; launches_mesh_two_lanes
-from phase 9's two-lane calls), then the nvidia-smi line. In every row `ms` is the median time a call of
+from phase 9's two-lane calls; for ed25519 the field products and
+squarings a row, a squaring counted at 55 multiply-adds and a product at
+100, and the -Xptxas -v registers and spills; lanes for the kernels whose
+row is G lanes), then the nvidia-smi line. In every row `ms` is the median time a call of
 back-to-back calls, the wrapper's host cost of a launch included, and
 `ms_device_only` the device alone (a sleep kernel holds the stream
 while the host enqueues the calls); the last line is {"ok": true, "device": {...}}. Every
@@ -156,6 +165,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_OPS_PER_S = 67e12 / 2
 OPS_PER_FIELD_MUL = 2 * 100  # 100 limb products, each a 32x32->64 multiply-add
+OPS_PER_FIELD_SQUARE = 2 * 55  # a squaring needs 55 (ref10's fe_sq; csrc/fe25519.cuh)
 # SHA-512 on 32-bit lanes: one compression is 80 rounds of about 23
 # 64-bit operations (three rotates and two XORs in each sigma, choice,
 # majority, five additions) and 64 schedule words of about 13, each
@@ -253,25 +263,36 @@ def device_ms(fn, reps: int, repeats: int = 5) -> float:
     return float(np.median(out))
 
 
-def field_muls_per_row(stage) -> int:
-    """Field multiplications (squarings included) a row costs, counted by
-    running the plain version on one CPU row; the kernels run the same
-    formulas and every row does the same work."""
+def field_muls_per_row(stage) -> dict:
+    """The field multiplications and squarings a row costs, counted by
+    running the plain version on one CPU row ({"products": ...,
+    "squarings": ...}, products without the squarings); the kernels run
+    the same formulas and every row does the same work."""
     from tendermint_tpu_torch.ops import field
 
-    count = [0]
-    mul = field.mul
+    count = {"products": 0, "squarings": 0}
+    mul, square = field.mul, field.square
 
-    def counting(f, g):
-        count[0] += 1
+    def counting_mul(f, g):
+        count["products"] += 1
         return mul(f, g)
 
-    field.mul = counting
+    def counting_square(f):
+        count["squarings"] += 1
+        return mul(f, f)
+
+    field.mul, field.square = counting_mul, counting_square
     try:
         stage()
     finally:
-        field.mul = mul
-    return count[0]
+        field.mul, field.square = mul, square
+    return count
+
+
+def field_ops(counts: dict) -> int:
+    """Operations of a row's field arithmetic: a product 100 multiply-adds,
+    a squaring 55, each 2 operations."""
+    return counts["products"] * OPS_PER_FIELD_MUL + counts["squarings"] * OPS_PER_FIELD_SQUARE
 
 
 def adversarial_batch(rng, n: int):
@@ -930,6 +951,33 @@ def phase7(vs, by_addr, rng, card, kernels):
             f"verify_chain over two sets took the generic path alone: {chain}")
     print(f"  verify_chain(h1, [h2, h4]) passed: launches {chain}")
 
+    # ed25519_scan alone at the rows of verify_chain's one generic batch
+    # (h2's commit under S, h4's under S'), held against its plain version
+    from tendermint_tpu_torch.models.verifier import VerifierModel
+    from tendermint_tpu_torch.ops import field
+
+    seen, model_verify = [], VerifierModel.verify
+    VerifierModel.verify = lambda self, *a: (seen.append(a), model_verify(self, *a))[1]
+    try:
+        lv.verify_chain(CHAIN, sh1, vs, [(fresh_sh(sh2), fresh_set(vs)), (fresh_sh(sh4), fresh_set(s2))],
+                        TRUSTING_PERIOD, **args)
+    finally:
+        VerifierModel.verify = model_verify
+    require(len(seen) == 1, f"verify_chain made one generic batch: {len(seen)}")
+    rows_c = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).cuda() for a in seen[0]]
+    prep_c = ed.verify_stage_prepare(*rows_c)
+    fb = lambda limbs: field.to_bytes(limbs.to(torch.int64))  # noqa: E731
+    err_c = seam_err(fb(ed.verify_stage_scan(*prep_c[:3])), fb(ed.scan_plain(*prep_c[:3])))
+    require(err_c == 0, f"ed25519_scan identical to its plain version at verify_chain's rows: {err_c}")
+    n_c = rows_c[0].shape[0]
+    scan_ms_c = device_ms(lambda: ed.verify_stage_scan(*prep_c[:3]), reps=10)
+    row = kernels["ed25519_scan"]
+    bound_c = 1e3 * n_c * (row["ops"] / row["rows"]) / INT32_MAD_OPS_PER_S
+    row.update(rows_verify_chain=n_c, ms_device_only_verify_chain=scan_ms_c, bound_ms_verify_chain=bound_c,
+               max_abs_err_verify_chain=err_c)
+    print(f"  ed25519_scan at verify_chain's {n_c} rows: {scan_ms_c:.4f} ms on the device alone (bound "
+          f"{bound_c:.4f} ms by operations), identical to its plain version ({card})")
+
     def expect(fn, cls: str, message: str, what: str) -> None:
         try:
             fn()
@@ -1141,26 +1189,31 @@ def kernel_fp_muls(host, stage) -> int:
 
 
 def ptxas_usage(kernel: str) -> dict:
-    """Registers, stack frame and cumulative stack (bytes) of `kernel` as
-    -Xptxas -v reported them for the current build."""
+    """Registers, stack frame, spill stores and loads and cumulative stack
+    (bytes) of `kernel` as -Xptxas -v reported them for the current build
+    (its first instance: each kernel is compiled at one G)."""
     import re
 
     from tendermint_tpu_torch.ops import _build
 
+    # the mangled name holds the kernel's name after its length, then a
+    # template's arguments (I) or the end of the name (E)
+    name = re.compile(rf"{len(kernel)}{kernel}[IE]")
     out, entry = {}, None
     for line in _build.ptxas_log().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            entry = m.group(1) if kernel in m.group(1) else None
+            entry = m.group(1) if name.search(m.group(1)) and "registers" not in out else None
             continue
         if entry is None:
             continue
-        m = re.search(r"(\d+) bytes stack frame", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and "stack_frame" not in out:
-            out["stack_frame"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes cumulative stack size", line)
+            out["stack_frame"], out["spill_stores"], out["spill_loads"] = (int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
         if m:
-            out["registers"], out["cumulative_stack"] = int(m.group(1)), int(m.group(2))
+            stack = re.search(r"(\d+) bytes cumulative stack size", line)
+            out["registers"], out["cumulative_stack"] = int(m.group(1)), int(stack.group(1)) if stack else 0
             entry = None
     return out
 
@@ -2105,7 +2158,7 @@ def main() -> int:
             lambda: ed.verify_stage_finish(one_point, one[2], one_prep[3], one_prep[4])),
     }
     sha_blocks = (64 + m + 17 + 127) // 128
-    ops = {name: n * muls[name] * OPS_PER_FIELD_MUL for name in muls}
+    ops = {name: n * field_ops(muls[name]) for name in muls}
     ops["ed25519_prepare"] += n * sha_blocks * OPS_PER_SHA512_BLOCK
     io_bytes = {  # each input read once, each output written once
         "ed25519_prepare": n * (32 + m + 64) + n * (64 + 64 + 160 + 1 + 1),
@@ -2124,9 +2177,10 @@ def main() -> int:
     for name, (kern, plain) in runs.items():
         kernels[name] = kernel_row(name, "ed25519_kernels.cu", launches[name], max(errs[name], errs_main[name]),
                                    median_ms(kern, reps=20, repeats=5), median_ms(plain, reps=1, repeats=3),
-                                   io_bytes[name], ops[name], n, muls[name])
+                                   io_bytes[name], ops[name], n, sum(muls[name].values()))
         kernels[name].update(max_abs_err_adversarial=errs[name], max_abs_err_main_path=errs_main[name],
-                             ms_device_only=device_ms(kern, reps=20))
+                             ms_device_only=device_ms(kern, reps=20),
+                             field_squarings_per_row=muls[name]["squarings"], **ptxas_usage(name))
     print(f"  generic kernels sum {sum(k['ms'] for k in kernels.values()):.4f} ms of the fresh-commit verify_commit p50 {p50:.3f} ms")
 
     # -- phase 5: the per-valset tabled path -----------------------------------
@@ -2148,10 +2202,19 @@ def main() -> int:
             f"every tabled kernel and ed25519_finish launched on the tabled path: {launches_t}")
     require(launches_t["ed25519_prepare"] == 0 and launches_t["ed25519_scan"] == 0,
             f"the generic prepare and scan did not launch on the tabled path: {launches_t}")
+    # the table build alone: what it holds at its peak besides its outputs
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build_out = ed.build_valset_tables(entry.pk)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() - held
+    del build_out
     print(f"phase 5: tabled verify_commit passed; first call {first_ms:.1f} ms, of which the table build "
           f"{1e3 * entry.build_s:.1f} ms ({N_VALS} validators, {entry.tables.numel() * 4 / 1e6:.1f} MB of tables); "
           f"peak device memory {peak / 1e6:.1f} MB ({(peak - mem0) / 1e6:.1f} MB above the {mem0 / 1e6:.1f} MB "
-          f"held before); launches {launches_t}")
+          f"held before); the table build alone {build_peak / 1e6:.2f} MB at its peak (tables and a_ok "
+          f"{(entry.tables.numel() * 4 + N_VALS) / 1e6:.2f} MB); launches {launches_t}")
     _idxs, vals_idx, csig, cpow, ccnt, _sig_ok, tpl = vs._commit_batch_arrays(CHAIN, commit)
     ok_t = verifier_t.verify_rows_cached_templated(key, all_pk, vals_idx, *tpl, csig)
     require(bool(ok_t.all()), "every present row of the honest commit verifies on the tabled path")
@@ -2251,7 +2314,7 @@ def main() -> int:
     one_prep_t = [x[:1].to(cpu) for x in prep_t]
     tmuls = {
         "ed25519_build_tables": field_muls_per_row(lambda: ed.build_valset_tables(one_pk)),
-        "ed25519_prepare_tabled": 0,  # SHA-512 and the scalar reduction only
+        "ed25519_prepare_tabled": {"products": 0, "squarings": 0},  # SHA-512 and the scalar reduction only
         "ed25519_scan_tabled": field_muls_per_row(
             lambda: ed.verify_stage_scan_tabled(one_prep_t[0], one_prep_t[1], one_tables, one_ok)),
     }
@@ -2272,9 +2335,9 @@ def main() -> int:
         + n * (160 + 1),
     }
     t_ops = {
-        "ed25519_build_tables": v * tmuls["ed25519_build_tables"] * OPS_PER_FIELD_MUL,
+        "ed25519_build_tables": v * field_ops(tmuls["ed25519_build_tables"]),
         "ed25519_prepare_tabled": n * sha_blocks * OPS_PER_SHA512_BLOCK,
-        "ed25519_scan_tabled": n * tmuls["ed25519_scan_tabled"] * OPS_PER_FIELD_MUL,
+        "ed25519_scan_tabled": n * field_ops(tmuls["ed25519_scan_tabled"]),
     }
     t_runs = {
         "ed25519_build_tables": (lambda: ed.build_valset_tables(entry.pk), None),
@@ -2295,9 +2358,16 @@ def main() -> int:
         rows = v if name == "ed25519_build_tables" else n
         kernels[name] = kernel_row(name, "ed25519_tabled.cu", launches_t[name],
                                    max(errs_t_main[name], errs_t_adv[name]), median_ms(kern, reps=reps, repeats=3),
-                                   plain_ms, t_bytes[name], t_ops[name], rows, tmuls[name])
+                                   plain_ms, t_bytes[name], t_ops[name], rows, sum(tmuls[name].values()))
         kernels[name].update(replaces=replaces_t[name], max_abs_err_adversarial=errs_t_adv[name],
-                             max_abs_err_main_path=errs_t_main[name], ms_device_only=device_ms(kern, reps=reps))
+                             max_abs_err_main_path=errs_t_main[name], ms_device_only=device_ms(kern, reps=reps),
+                             field_squarings_per_row=tmuls[name]["squarings"], **ptxas_usage(name))
+    for name, g in ed.lanes().items():
+        kernels[name]["lanes"] = g
+        print(f"  {name}: G = {g} lanes a {'validator' if 'build' in name else 'row'} (compiled in); -Xptxas -v: "
+              f"{kernels[name]['registers']} registers, {kernels[name]['spill_stores']} / "
+              f"{kernels[name]['spill_loads']} bytes of spill stores / loads, {kernels[name]['stack_frame']} bytes "
+              f"of stack frame")
     kernels["ed25519_finish"]["launches_tabled_path"] = launches_t["ed25519_finish"]
     per_call = sum(kernels[k]["ms"] for k in ("ed25519_prepare_tabled", "ed25519_scan_tabled", "ed25519_finish"))
     print(f"  tabled kernels per call sum {per_call:.4f} ms of the fresh-commit verify_commit p50 {t50:.3f} ms "

@@ -14,7 +14,9 @@ cudaError_t launch_finish(const int32_t*, const uint8_t*, const uint8_t*, const 
                           const uint8_t*, int, uint8_t*, unsigned long long*, cudaStream_t);
 cudaError_t set_constants_tabled(const void* host, size_t bytes);
 cudaError_t set_comb(const void* host, size_t bytes);
-cudaError_t launch_build_tables(const uint8_t*, int, int32_t*, uint8_t*, int32_t*, cudaStream_t);
+cudaError_t launch_build_tables(const uint8_t*, int, int32_t*, uint8_t*, cudaStream_t);
+int scan_lanes();
+int build_lanes();
 cudaError_t launch_prepare_tabled(const uint8_t*, const int32_t*, int, const uint8_t*, int, const uint8_t*, int,
                                   const int32_t*, const uint8_t*, int, const uint8_t*, int, int8_t*, int8_t*,
                                   uint8_t*, cudaStream_t);
@@ -69,9 +71,15 @@ int tm_ed25519_finish(const void* pt, const void* sig, const void* a_ok, const v
                                 (uint8_t*)ok, (unsigned long long*)tally, (cudaStream_t)stream);
 }
 
-int tm_ed25519_build_tables(const void* pk, int v, void* tables, void* a_ok, void* scratch, void* stream) {
-  return (int)tmk::launch_build_tables((const uint8_t*)pk, v, (int32_t*)tables, (uint8_t*)a_ok, (int32_t*)scratch,
-                                      (cudaStream_t)stream);
+int tm_ed25519_build_tables(const void* pk, int v, void* tables, void* a_ok, void* stream) {
+  return (int)tmk::launch_build_tables((const uint8_t*)pk, v, (int32_t*)tables, (uint8_t*)a_ok, (cudaStream_t)stream);
+}
+
+// The lanes that work one row of ed25519_scan and one validator of
+// ed25519_build_tables (G, compiled in).
+void tm_ed25519_lanes(int* scan, int* build) {
+  *scan = tmk::scan_lanes();
+  *build = tmk::build_lanes();
 }
 
 int tm_ed25519_prepare_tabled(const void* pk_all, const void* idx, int v, const void* msg, int mlen,

@@ -39,6 +39,7 @@
 // projective points, the identity (0 : 1 : 0).
 #pragma once
 #include "fp381.cuh"
+#include "lanes.cuh"
 
 namespace bls {
 
@@ -110,29 +111,10 @@ BLS_FN bool g1_normalize(Fp& x, Fp& y, const Proj<Fp>& p) {
   return fp_is_zero(p.Z);
 }
 
-// -- a row's lanes ----------------------------------------------------------------
+// -- a row's lanes (lanes.cuh) -----------------------------------------------------
 
-struct Lanes {
-  int lane;       // this lane within the row's group (device)
-  int g;          // lanes a row: a divisor of 32, or a block of several warps
-  unsigned mask;  // the group's lanes in the warp (device, g <= 32)
-};
-
-// One stage: items 0..n-1 over the row's lanes, then the row's sync (the
-// block's, where a row is a block of several warps).
-template <class F>
-BLS_FN void par(const Lanes& L, int n, F f) {
-#if defined(__CUDA_ARCH__)
-  for (int i = L.lane; i < n; i += L.g) f(i);
-  if (L.g > 32)
-    __syncthreads();
-  else
-    __syncwarp(L.mask);
-#else
-  for (int lane = 0; lane < L.g; ++lane)
-    for (int i = lane; i < n; i += L.g) f(i);
-#endif
-}
+using ::Lanes;
+using ::par;
 
 // oa[i] = oa[i] * ob[i] for i < n: the only Fp products of a stage.
 BLS_NOINLINE void mul_stage(const Lanes& L, Fp* oa, const Fp* ob, int n) {

@@ -1,0 +1,99 @@
+// The ed25519 kernels' arithmetic (fe25519.cuh, ge25519.cuh,
+// ge25519_lanes.cuh) built as host C++ with a plain C interface, for the
+// tests: ops/ed25519_host.py compiles it with g++ and loads it with
+// ctypes. Without nvcc the headers take their portable branches: `par`
+// runs a row's lanes in turn over each stage. Nothing here is part of the
+// kernels' build (ops/_build.py).
+//
+// Seams as the kernels': field elements as 10 int32 limbs, points as
+// (4, 10) int32 (X, Y, Z, T), cached points as (4, 10) (Y+X, Y-X, 2Z, 2dT).
+// `lanes` is the row's lane group G.
+#include <string.h>
+
+#include <memory>
+
+#include "ge25519_lanes.cuh"
+
+namespace {
+
+TmConstants host_k;
+
+Lanes host_lanes(int g) { return Lanes{0, g, 0}; }
+
+void load_d2(fe& d2) { fe_load_const(d2, host_k.d2); }
+
+template <int G>
+int host_build_row(int32_t* out, const uint8_t* pk) {
+  auto R = std::make_unique<BuildRow<G>>();
+  uint8_t ok = 0;
+  build_row(host_lanes(G), *R, pk, host_k, out, &ok);
+  return ok;
+}
+
+}  // namespace
+
+extern "C" {
+
+int ed_host_set_constants(const void* blob, size_t bytes) {
+  if (bytes != sizeof(TmConstants)) return -1;
+  memcpy(&host_k, blob, bytes);
+  return 0;
+}
+
+// op 0: r = a b (fe_mul), 1: r = a^2 (fe_sq), 2: r = a a (fe_mul(a, a))
+int ed_host_fe_op(int op, const int32_t* a, const int32_t* b, int32_t* r) {
+  fe x, y, z;
+  load_fe(x, a);
+  load_fe(y, b);
+  switch (op) {
+    case 0: fe_mul(z, x, y); break;
+    case 1: fe_sq(z, x); break;
+    case 2: fe_mul(z, x, x); break;
+    default: return -1;
+  }
+  store_fe(r, z);
+  return 0;
+}
+
+// One lane-staged group operation on (4, 10) points: op 0: p <- 2p
+// (dbl_stages), 1: p <- p + q for q cached read through `digit`
+// (add_stages). want_t: whether T is computed.
+int ed_host_point_op(int op, int32_t* p, const int32_t* q, int digit, int want_t, int lanes) {
+  fe P[4], S[4], Q[4];
+  for (int i = 0; i < 4; i++) {
+    load_fe(P[i], p + 10 * i);
+    load_fe(Q[i], q + 10 * i);
+  }
+  const Lanes L = host_lanes(lanes);
+  if (op == 0)
+    dbl_stages(L, P, S, want_t != 0);
+  else if (op == 1)
+    add_stages(L, P, S, Q, digit, want_t != 0);
+  else
+    return -1;
+  for (int i = 0; i < 4; i++) store_fe(p + 10 * i, P[i]);
+  return 0;
+}
+
+// One ed25519_scan row: sd, kd (64,) int8, neg_a (4, 10) -> out (4, 10).
+void ed_host_scan_row(int32_t* out, const int8_t* sd, const int8_t* kd, const int32_t* neg_a, int lanes) {
+  auto R = std::make_unique<ScanRow>();
+  fe base[8][4], d2;
+  memcpy(base, host_k.base, sizeof(base));
+  load_d2(d2);
+  scan_row(host_lanes(lanes), *R, sd, kd, neg_a, out, base, d2);
+}
+
+// One ed25519_build_tables validator on 2, 4, 8 or 16 lanes: pk (32,) ->
+// out (16, 8, 3, 10); returns a_ok (-1 for another lane count).
+int ed_host_build_row(int32_t* out, const uint8_t* pk, int lanes) {
+  switch (lanes) {
+    case 2: return host_build_row<2>(out, pk);
+    case 4: return host_build_row<4>(out, pk);
+    case 8: return host_build_row<8>(out, pk);
+    case 16: return host_build_row<16>(out, pk);
+  }
+  return -1;
+}
+
+}  // extern "C"

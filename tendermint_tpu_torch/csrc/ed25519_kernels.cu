@@ -1,5 +1,5 @@
 // The three kernels of batched ed25519 verification (Go x/crypto's
-// cofactorless acceptance), one thread per signature row.
+// cofactorless acceptance).
 //
 //   ed25519_prepare  replaces ops/ed25519.py verify_stage_prepare
 //   ed25519_scan     replaces ops/ed25519.py verify_stage_scan
@@ -10,28 +10,33 @@
 // them (signed digits, -A, the result point) stay on the card.
 //
 // What bounds them: 32-bit integer multiply-adds. A field multiplication
-// is 100 IMAD.WIDE (fe25519.cuh); the scan does about 2,900 of them a
-// row (256 doublings at 7-8 each, 128 cached additions at 7-8, the
-// [1..8](-A) table), prepare and finish about 270 each, nearly all in one
-// exponentiation (the square root in decompression, the inversion in
-// encode). Every row's work is the same, so the kernels have no
-// divergence except at the table selects. Bytes are small: about 550 B
-// a row in and out of prepare, under 450 B for the others.
+// is 100 IMAD.WIDE and a squaring 55 (fe25519.cuh); the scan does about
+// 2,900 products a row, 1,024 of them squarings (256 doublings, 128 cached
+// additions, the [1..8](-A) table), prepare and finish about 270 each,
+// nearly all squarings in one exponentiation (the square root in
+// decompression, the inversion in encode). Every row's work is the same.
+// Bytes are small: about 550 B a row in and out of prepare, under 450 B
+// for the others.
 //
-// What the design does about it: the simple form first. Radix 2^25.5 so
-// that every product is one IMAD.WIDE; one thread per row, so a row's
-// whole scan runs in registers with no exchange between threads; the
-// per-row [1..8](-A) table (1.3 KB) sits in local memory (L1-cached); the
-// constant [1..8]B table and the curve constants sit in __constant__
-// memory, uploaded from the host's pure-Python oracle. Blocks of 64
-// threads spread 10,000 rows over all 132 SMs. Not yet done: a dedicated
-// squaring (55 products instead of 100), several threads per row, and
-// batched inversion in finish.
+// What the design does about it. Radix 2^25.5, so that every product is
+// one IMAD.WIDE, and a dedicated squaring. prepare and finish: one thread
+// a row, each a chain of products in registers. The scan: a row on G
+// lanes of a warp (ge25519_lanes.cuh), each group formula cut into stages
+// of four independent products, one a lane, the row's point, its
+// [1..8](-A) table (1,280 B) and its digits in shared memory; so a
+// 10,000-row batch keeps some 9 warps on each SM instead of 2.4, and a
+// doubling is two product latencies deep instead of eight. G is compiled
+// in (kScanLanes, the fastest of 2, 4 and 8 at 9,510 and 28,500 rows:
+// scripts/ed25519_lane_sweep.py, PERF.md). The constant [1..8]B table and
+// the curve constants sit in __constant__ memory, uploaded from the
+// host's pure-Python oracle; the scan copies the table into each block's
+// shared memory, where the rows' different entries do not serialise.
 #include <stdint.h>
 #include <cuda_runtime.h>
 
 #include "fe25519.cuh"
 #include "ge25519.cuh"
+#include "ge25519_lanes.cuh"
 #include "sc25519.cuh"
 #include "sha512.cuh"
 
@@ -40,6 +45,11 @@ namespace tmk {
 __constant__ TmConstants c_k;
 
 constexpr int kBlock = 64;
+constexpr int kWarp = 32;
+constexpr int kScanLanes = 4;  // G of ed25519_scan
+
+// A row of G lanes: 32 / G rows a block of one warp.
+__host__ __device__ constexpr int scan_rows_per_block(int g) { return kWarp / g; }
 
 // Replaces verify_stage_prepare (ops/ed25519.py:56): sha512 (ops/sha512.py:176),
 // sc.reduce512 / sc.is_canonical (ops/sc.py:147, :165), curve.decompress
@@ -83,64 +93,31 @@ __global__ void __launch_bounds__(kBlock) ed25519_prepare(
 
 // Replaces verify_stage_scan (ops/ed25519.py:79) ->
 // curve.double_scalar_mul_signed (ops/curve.py:605-641).
-// Bound: 2,887 field multiplications a row -- 71 for the [1..8](-A) table
-// (7 additions at 9, 8 conversions at 1), then 64 windows of four shared
-// doublings (three at 7 without T, one at 8) and two cached additions (8,
-// and 7 without T) -- at 100 IMAD.WIDE each, about 289,000 a row. Bytes
-// (288 B in, 160 B out a row) are negligible beside that.
-// sd, kd (N,64) i8, neg_a (N,4,10) i32 -> [s]B + [k](-A) as (N,4,10) i32
-__global__ void __launch_bounds__(kBlock) ed25519_scan(
+// Bound: 2,887 field products a row, 1,024 of them squarings -- 71 for the
+// [1..8](-A) table (7 additions at 9, 8 conversions at 1), then 64 windows
+// of four shared doublings (4 squarings and 3 products, 4 on the last) and
+// two cached additions (8, and 7 without T) -- about 232,000 IMAD.WIDE a
+// row. Bytes (288 B in, 160 B out a row) are negligible beside that.
+// sd, kd (N,64) i8, neg_a (N,4,10) i32 -> [s]B + [k](-A) as (N,4,10) i32.
+// Rows of G lanes (scan_row, ge25519_lanes.cuh), each with its ScanRow in
+// dynamic shared memory; the block's copy of [1..8]B in static.
+template <int G>
+__global__ void __launch_bounds__(kWarp) ed25519_scan(
     const int8_t* __restrict__ sd, const int8_t* __restrict__ kd, const int32_t* __restrict__ neg_a,
     int n, int32_t* __restrict__ out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  static_assert(G == 2 || G == 4 || G == 8, "a row is 2, 4 or 8 lanes of a warp");
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ fe base[8][4];
+  for (int k = threadIdx.x; k < 8 * 4 * 10; k += blockDim.x) (&base[0][0].v[0])[k] = (&c_k.base[0][0][0])[k];
+  __syncthreads();
+  const int group = (int)threadIdx.x / G;
+  const int row = blockIdx.x * scan_rows_per_block(G) + group;
   if (row >= n) return;
+  const Lanes L{(int)threadIdx.x % G, G, ((1u << G) - 1) << (group * G)};
   fe d2;
   fe_load_const(d2, c_k.d2);
-  ge_p3 q;
-  const int32_t* src = neg_a + 40 * (size_t)row;
-  load_fe(q.X, src);
-  load_fe(q.Y, src + 10);
-  load_fe(q.Z, src + 20);
-  load_fe(q.T, src + 30);
-
-  ge_cached tbl[8];  // [1..8]q, built as curve.double_scalar_mul_signed does
-  ge_p3 acc = q;
-#pragma unroll 1
-  for (int i = 0; i < 8; i++) {
-    ge_to_cached(tbl[i], acc, d2);
-    if (i < 7) ge_add(acc, acc, q, d2);
-  }
-
-  const int8_t* sdr = sd + 64 * (size_t)row;
-  const int8_t* kdr = kd + 64 * (size_t)row;
-  ge_identity(acc);
-#pragma unroll 1
-  for (int w = 63; w >= 0; w--) {
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, true);
-    ge_cached c;
-    const int sdig = sdr[w];
-    const int smag = sdig < 0 ? -sdig : sdig;
-    const int si = smag > 0 ? smag - 1 : 0;
-    load_fe(c.ypx, c_k.base[si][0]);
-    load_fe(c.ymx, c_k.base[si][1]);
-    load_fe(c.z2, c_k.base[si][2]);
-    load_fe(c.t2d, c_k.base[si][3]);
-    ge_select_fix(c, sdig);
-    ge_add_cached(acc, acc, c, true);
-    const int kdig = kdr[w];
-    const int kmag = kdig < 0 ? -kdig : kdig;
-    c = tbl[kmag > 0 ? kmag - 1 : 0];
-    ge_select_fix(c, kdig);
-    ge_add_cached(acc, acc, c, false);
-  }
-  int32_t* dst = out + 40 * (size_t)row;
-  store_fe(dst, acc.X);
-  store_fe(dst + 10, acc.Y);
-  store_fe(dst + 20, acc.Z);
-  store_fe(dst + 30, acc.T);
+  scan_row(L, reinterpret_cast<ScanRow*>(smem)[group], sd + 64 * (size_t)row, kd + 64 * (size_t)row,
+           neg_a + 40 * (size_t)row, out + 40 * (size_t)row, base, d2);
 }
 
 // Replaces verify_stage_finish (ops/ed25519.py:85) and
@@ -200,11 +177,20 @@ cudaError_t launch_prepare(const uint8_t* pk, const uint8_t* msg, const uint8_t*
   return cudaGetLastError();
 }
 
-cudaError_t launch_scan(const int8_t* sd, const int8_t* kd, const int32_t* neg_a, int n, int32_t* out,
-                        cudaStream_t stream) {
-  ed25519_scan<<<grid_for(n), kBlock, 0, stream>>>(sd, kd, neg_a, n, out);
+template <int G>
+cudaError_t launch_scan_at(const int8_t* sd, const int8_t* kd, const int32_t* neg_a, int n, int32_t* out,
+                           cudaStream_t stream) {
+  const int rows = scan_rows_per_block(G);
+  ed25519_scan<G><<<(n + rows - 1) / rows, kWarp, rows * sizeof(ScanRow), stream>>>(sd, kd, neg_a, n, out);
   return cudaGetLastError();
 }
+
+cudaError_t launch_scan(const int8_t* sd, const int8_t* kd, const int32_t* neg_a, int n, int32_t* out,
+                        cudaStream_t stream) {
+  return launch_scan_at<kScanLanes>(sd, kd, neg_a, n, out, stream);
+}
+
+int scan_lanes() { return kScanLanes; }
 
 cudaError_t launch_finish(const int32_t* pt, const uint8_t* sig, const uint8_t* a_ok, const uint8_t* s_ok,
                           const int64_t* power, const uint8_t* counted, int n, uint8_t* ok,

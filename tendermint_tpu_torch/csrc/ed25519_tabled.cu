@@ -1,5 +1,5 @@
-// The per-valset tabled path of batched ed25519 verification, one thread
-// per validator (the build) or per signature row (prepare, scan).
+// The per-valset tabled path of batched ed25519 verification: G lanes a
+// validator (the build), one thread a signature row (prepare, scan).
 //
 //   ed25519_build_tables    replaces ops/ed25519.py build_valset_tables
 //                           (curve.decompress, curve.build_split_tables,
@@ -20,19 +20,38 @@
 // port's limbs: (V, 16, 8, 3, 10) int32, 15,360 B a validator.
 //
 // What bounds them: 32-bit integer multiply-adds, 100 to a field
-// multiplication (fe25519.cuh). The build does about 4,100 a validator
-// (decompression 275, sixteen chunks of seven additions and sixteen
-// doublings, a Montgomery batch inversion of the 128 entries' Z, 128
-// affine conversions); the scan about 790 a row (16 doublings, 64 mixed
-// additions from the row's key table, 32 from the constant base comb);
-// prepare is SHA-512 and scalar reduction, no field arithmetic. Bytes:
-// the build writes 15,360 B a validator, the scan reads 64 table entries
-// of 120 B a row (7.7 KB).
+// multiplication and 55 to a squaring (fe25519.cuh). The build does 3,631
+// products a validator, 1,469 of them squarings (decompression 275,
+// sixteen chunks of seven additions and sixteen doublings, a Montgomery
+// batch inversion of the 128 entries' Z, 128 affine conversions); the
+// scan about 790 a row (16 doublings, 64 mixed additions from the row's
+// key table, 32 from the constant base comb); prepare is SHA-512 and
+// scalar reduction, no field arithmetic. Bytes: the build
+// writes 15,360 B a validator, the scan reads 64 table entries of 120 B a
+// row (7.7 KB).
 //
-// What the design does about it: the simple form first, as in
-// ed25519_kernels.cu. The table read is uncoalesced -- each thread reads
-// its own validator's 120-B entries, 15 KB away from its neighbours' --
-// and is the first thing for a later version to redesign. An index only
+// What the design does about it. The build: a validator on G = 4 lanes
+// of a warp (ge25519_lanes.cuh), 32 validators a block. The block's
+// threads first decompress its 32 keys, one each (one warp's chains, the
+// other warps idle); then each validator's lanes run the 240 doublings
+// that make q_1..q_15 stage-parallel, four products a stage, and each
+// lane adds up its four splits' entries and sweeps them forward
+// (Montgomery's trick); one thread a validator then inverts the product
+// of its lanes' products; and the lanes sweep back, converting their
+// entries to affine-cached form in place. The entries are built in their
+// own slots of the output, the kernel's working space: no scratch in
+// device memory, and 1.8 KB of shared state a validator, so that all
+// 10,000 validators of a set are on the card at once (three blocks an SM
+// at 168 registers, which __launch_bounds__ holds). Kept in shared memory
+// instead (15,360 B a validator) they fitted 12 validators on an SM, and
+// the build ran in six waves and 2.7 times as long (PERF.md). G is
+// compiled in (kBuildLanes, the fastest of 2, 4, 8 and 16 at 10,000
+// validators: scripts/ed25519_lane_sweep.py).
+//
+// prepare and the scan: one thread a row, the simple form of
+// ed25519_kernels.cu. The scan's table read is uncoalesced -- each thread
+// reads its own validator's 120-B entries, 15 KB away from its neighbours'
+// -- and is the first thing for a later version to redesign. An index only
 // changes which table a thread reads: no gathered copy of a table is
 // ever made, so the JAX package's dense, gathered and sharded scan
 // variants (which exist to keep XLA's gathers bounded) are one kernel.
@@ -45,6 +64,7 @@
 
 #include "fe25519.cuh"
 #include "ge25519.cuh"
+#include "ge25519_lanes.cuh"
 #include "sc25519.cuh"
 #include "sha512.cuh"
 
@@ -52,16 +72,21 @@ namespace tmk {
 
 __constant__ TmConstants c_tab;  // this translation unit's copy of the constants
 
-constexpr int kSplits = 16;
+constexpr int kSplits = kBuildSplits;
 constexpr int kSplitW = 4;
-constexpr int kEntries = 8;
-constexpr int kTableInts = kSplits * kEntries * 30;  // 3,840 int32 a validator
+constexpr int kEntries = kBuildEntries;
+constexpr int kTableInts = kBuildTableInts;
 constexpr int kCombPos = 32;
 constexpr int kCombEntries = 128;
 
 __device__ int32_t c_comb[kCombPos][kCombEntries][3][10];
 
 constexpr int kTabBlock = 64;
+constexpr int kBuildLanes = 4;  // G of ed25519_build_tables
+
+// Validators of G lanes a block: 32 in up to 128 threads (fewer for G
+// above 4).
+__host__ __device__ constexpr int build_rows_per_block(int g) { return g <= 4 ? 32 : 128 / g; }
 
 __device__ __forceinline__ void load_precomp(ge_precomp& c, const int32_t* src) {
   load_fe(c.ypx, src);
@@ -75,78 +100,64 @@ __device__ __forceinline__ void load_precomp(ge_precomp& c, const int32_t* src) 
 // Entries are built as the JAX program builds them -- [1]qm, then
 // qm + qm, then each next one as (previous + qm) by the unified addition,
 // and q(m+1) as sixteen doublings of qm -- so even an undecodable key's
-// garbage point gives the same values. Their Z are inverted with one
-// Montgomery batch inversion over the validator's 128 entries: a Z that
-// is 0 is taken as 1 in both sweeps (it cannot poison the others) and
-// its inverse comes out 0, as in invert_blocked.
-// Bound: about 4,100 field multiplications a validator; 15,392 B moved.
-// pk (V,32) u8 -> tables (V,16,8,3,10) i32, a_ok (V,) u8; scratch
-// (V,128,10) i32 holds the inversion's prefix products.
-__global__ void __launch_bounds__(kTabBlock) ed25519_build_tables(
-    const uint8_t* __restrict__ pk, int v, int32_t* __restrict__ tables, uint8_t* __restrict__ a_ok,
-    int32_t* __restrict__ scratch) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= v) return;
-  fe d2;
-  fe_load_const(d2, c_tab.d2);
-  ge_p3 qm;
-  a_ok[row] = ge_decompress(qm, pk + 32 * (size_t)row, c_tab);
-  fe_neg(qm.X, qm.X);
-  fe_neg(qm.T, qm.T);
+// garbage point gives the same values. Their Z are inverted by Montgomery's
+// trick, each lane over its share of the 128 entries: a Z that is 0 is
+// taken as 1 in the products (it cannot poison the others) and its
+// inverse comes out 0, as in invert_blocked.
+// Bound: 3,631 field products a validator, 1,469 of them squarings (the
+// kernel runs 128 more, to scale X and Y in the forward sweep); 15,393 B
+// moved.
+// pk (V,32) u8 -> tables (V,16,8,3,10) i32, a_ok (V,) u8. Validators of G
+// lanes, each with its BuildRow in dynamic shared memory; the steps run a
+// thread a validator and those on its lanes are separated by the block's
+// barrier.
+// Validator r's entries: its region of the tables.
+__device__ __forceinline__ fe (*entries_of(int32_t* tables, int r))[3] {
+  return reinterpret_cast<fe(*)[3]>(tables + (size_t)r * kTableInts);
+}
 
-  int32_t* out = tables + (size_t)row * kTableInts;
-  int32_t* pre = scratch + (size_t)row * kSplits * kEntries * 10;
-  // projective X, Y, Z of every entry, in the entry's own slot
-#pragma unroll 1
-  for (int m = 0; m < kSplits; m++) {
-    ge_p3 acc = qm;
-#pragma unroll 1
-    for (int i = 0; i < kEntries; i++) {
-      int32_t* e = out + (m * kEntries + i) * 30;
-      store_fe(e, acc.X);
-      store_fe(e + 10, acc.Y);
-      store_fe(e + 20, acc.Z);
-      if (i < kEntries - 1) ge_add(acc, acc, qm, d2);
-    }
-    if (m < kSplits - 1) {
-#pragma unroll 1
-      for (int j = 0; j < 4 * kSplitW; j++) ge_double(qm, qm, j == 4 * kSplitW - 1);
+template <int G>
+__global__ void __launch_bounds__(128, 3) ed25519_build_tables(const uint8_t* __restrict__ pk, int v,
+                                                            int32_t* __restrict__ tables,
+                                                            uint8_t* __restrict__ a_ok) {
+  static_assert(G == 2 || G == 4 || G == 8 || G == 16, "a validator is 2, 4, 8 or 16 lanes of a warp");
+  constexpr int kRows = build_rows_per_block(G);
+  extern __shared__ __align__(16) uint8_t smem[];
+  BuildRow<G>* R = reinterpret_cast<BuildRow<G>*>(smem);
+  // Each step works out its own indices, so that nothing but the
+  // parameters lives across a barrier: the one-thread steps use all of
+  // the registers that __launch_bounds__ leaves them.
+  {  // a thread a validator: decompression
+    const int r = blockIdx.x * kRows + (int)threadIdx.x;
+    if ((int)threadIdx.x < kRows && r < v)
+      build_start(R[threadIdx.x], entries_of(tables, r), pk + 32 * (size_t)r, c_tab, a_ok + r);
+  }
+  __syncthreads();
+  {  // G lanes a validator: the entries and the forward sweeps
+    const int group = (int)threadIdx.x / G;
+    const int r = blockIdx.x * kRows + group;
+    if (r < v) {
+      const Lanes L{(int)threadIdx.x % G, G, ((1u << G) - 1) << ((int)threadIdx.x % 32 / G * G)};
+      fe d2;
+      fe_load_const(d2, c_tab.d2);
+      build_entries(L, R[group], entries_of(tables, r), d2);
     }
   }
-
-  // forward sweep: pre[e] = product of the (nonzero) Z before entry e
-  fe run, z;
-  fe_set_small(run, 1);
-#pragma unroll 1
-  for (int e = 0; e < kSplits * kEntries; e++) {
-    load_fe(z, out + e * 30 + 20);
-    store_fe(pre + e * 10, run);
-    if (!fe_iszero(z)) fe_mul(run, run, z);
+  __syncthreads();
+  {  // a thread a validator: the inversion
+    const int r = blockIdx.x * kRows + (int)threadIdx.x;
+    if ((int)threadIdx.x < kRows && r < v) build_invert(R[threadIdx.x]);
   }
-  fe inv;
-  fe_invert(inv, run);
-  // backward sweep: inv is 1 / (product of the Z up to entry e)
-#pragma unroll 1
-  for (int e = kSplits * kEntries - 1; e >= 0; e--) {
-    int32_t* slot = out + e * 30;
-    load_fe(z, slot + 20);
-    const bool zero = fe_iszero(z);
-    fe zi, p;
-    load_fe(p, pre + e * 10);
-    fe_mul(zi, inv, p);
-    if (zero) fe_set_small(zi, 0); else fe_mul(inv, inv, z);
-    fe X, Y, x, y, t;
-    load_fe(X, slot);
-    load_fe(Y, slot + 10);
-    fe_mul(x, X, zi);
-    fe_mul(y, Y, zi);
-    fe_add(X, y, x);
-    fe_sub(Y, y, x);
-    fe_mul(t, x, y);
-    fe_mul(t, t, d2);
-    store_fe(slot, X);
-    store_fe(slot + 10, Y);
-    store_fe(slot + 20, t);
+  __syncthreads();
+  {  // G lanes a validator: the backward sweeps
+    const int group = (int)threadIdx.x / G;
+    const int r = blockIdx.x * kRows + group;
+    if (r < v) {
+      const Lanes L{(int)threadIdx.x % G, G, ((1u << G) - 1) << ((int)threadIdx.x % 32 / G * G)};
+      fe d2;
+      fe_load_const(d2, c_tab.d2);
+      build_finish(L, R[group], entries_of(tables, r), d2);
+    }
   }
 }
 
@@ -265,20 +276,38 @@ __global__ void __launch_bounds__(kTabBlock) ed25519_scan_tabled(
 
 static inline int grid_tab(int n) { return (n + kTabBlock - 1) / kTabBlock; }
 
-cudaError_t set_constants_tabled(const void* host, size_t bytes) {
-  if (bytes != sizeof(TmConstants)) return cudaErrorInvalidValue;
-  return cudaMemcpyToSymbol(c_tab, host, bytes);
-}
-
 cudaError_t set_comb(const void* host, size_t bytes) {
   if (bytes != sizeof(c_comb)) return cudaErrorInvalidValue;
   return cudaMemcpyToSymbol(c_comb, host, bytes);
 }
 
-cudaError_t launch_build_tables(const uint8_t* pk, int v, int32_t* tables, uint8_t* a_ok, int32_t* scratch,
-                                cudaStream_t stream) {
-  ed25519_build_tables<<<grid_tab(v), kTabBlock, 0, stream>>>(pk, v, tables, a_ok, scratch);
+template <int G>
+cudaError_t allow_build_smem() {
+  return cudaFuncSetAttribute(ed25519_build_tables<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(build_rows_per_block(G) * sizeof(BuildRow<G>)));
+}
+
+template <int G>
+cudaError_t launch_build_tables_at(const uint8_t* pk, int v, int32_t* tables, uint8_t* a_ok, cudaStream_t stream) {
+  const int rows = build_rows_per_block(G);
+  ed25519_build_tables<G><<<(v + rows - 1) / rows, rows * G, rows * sizeof(BuildRow<G>), stream>>>(pk, v, tables,
+                                                                                                  a_ok);
   return cudaGetLastError();
+}
+
+cudaError_t launch_build_tables(const uint8_t* pk, int v, int32_t* tables, uint8_t* a_ok, cudaStream_t stream) {
+  return launch_build_tables_at<kBuildLanes>(pk, v, tables, a_ok, stream);
+}
+
+int build_lanes() { return kBuildLanes; }
+
+// The constants, and the build's shared-memory opt-in, on the current
+// device.
+cudaError_t set_constants_tabled(const void* host, size_t bytes) {
+  if (bytes != sizeof(TmConstants)) return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemcpyToSymbol(c_tab, host, bytes);
+  if (e == cudaSuccess) e = allow_build_smem<kBuildLanes>();
+  return e;
 }
 
 cudaError_t launch_prepare_tabled(const uint8_t* pk_all, const int32_t* idx, int v, const uint8_t* msg, int mlen,

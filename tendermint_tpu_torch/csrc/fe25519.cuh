@@ -17,33 +17,55 @@
 // limb (doubled for odd*odd) and 19 times a limb is below 2^57.3, a column
 // of ten below 2^61, so int64 columns never overflow; 19 * limb fits
 // int32. fe_mul leaves limbs within that bound, and fe_add / fe_sub /
-// fe_neg run one floor-carry pass, so sums never pile up across a formula.
+// fe_neg run one floor-carry pass (fe_weak), so sums never pile up across
+// a formula.
 //
-// Two kernel sources include these headers; the functions that are not
-// forced inline are static, so each source keeps its own copy.
+// Squaring: ref10's 55 products (fe_sq). A square's column k is
+// fe_mul(f, f)'s column k with the two equal terms f_i f_j and f_j f_i
+// (i != j) taken once at twice the weight. Every term is an exact int64,
+// and a partial sum never exceeds the sum of the absolute values of the
+// column's terms in fe_mul, which is below 2^61 for limbs within the bound
+// above; so the ten column sums are the same integers as fe_mul(f, f)'s,
+// and the same carry chain turns them into the same limbs, for every input
+// within the bound. A term's weight (1, 2 or 4 for the pair and the odd x
+// odd factor, times 19 past 2^255) is split over its int32 operands as
+// (1, 2 or 4) f_i times (1 or 19) f_j: 4 (2^26 + 2^10) and 19 (2^26 + 2^10)
+// both fit int32.
+//
+// The kernel sources include these headers and every function is static,
+// so each source keeps its own copy. Without nvcc (csrc/ed25519_host.cc,
+// built with g++ for the tests) the same functions compile as host C++.
 #pragma once
 #include <stdint.h>
 
-struct fe {
+#if defined(__CUDACC__)
+#define TM_FN static __device__ __forceinline__
+#define TM_CALL static __device__
+#else
+#define TM_FN static inline
+#define TM_CALL static
+#endif
+
+struct alignas(8) fe {
   int32_t v[10];
 };
 
-__device__ __forceinline__ int fe_width(int i) { return (i & 1) ? 25 : 26; }
+TM_FN int fe_width(int i) { return (i & 1) ? 25 : 26; }
 
-__device__ __forceinline__ void fe_set_small(fe& h, int32_t x) {
+TM_FN void fe_set_small(fe& h, int32_t x) {
 #pragma unroll
   for (int i = 0; i < 10; i++) h.v[i] = 0;
   h.v[0] = x;
 }
 
-__device__ __forceinline__ void fe_load_const(fe& h, const int32_t* c) {
+TM_FN void fe_load_const(fe& h, const int32_t* c) {
 #pragma unroll
   for (int i = 0; i < 10; i++) h.v[i] = c[i];
 }
 
 // One sequential floor-carry pass on int32 limbs; the carry out of limb
 // 9 re-enters limb 0 times 19 (2^255 = 19 mod p).
-__device__ __forceinline__ void fe_weak(fe& h) {
+TM_FN void fe_weak(fe& h) {
 #pragma unroll
   for (int i = 0; i < 9; i++) {
     const int w = fe_width(i);
@@ -56,27 +78,44 @@ __device__ __forceinline__ void fe_weak(fe& h) {
   h.v[0] += 19 * c;
 }
 
-__device__ __forceinline__ void fe_add(fe& h, const fe& f, const fe& g) {
+TM_FN void fe_add(fe& h, const fe& f, const fe& g) {
 #pragma unroll
   for (int i = 0; i < 10; i++) h.v[i] = f.v[i] + g.v[i];
   fe_weak(h);
 }
 
-__device__ __forceinline__ void fe_sub(fe& h, const fe& f, const fe& g) {
+TM_FN void fe_sub(fe& h, const fe& f, const fe& g) {
 #pragma unroll
   for (int i = 0; i < 10; i++) h.v[i] = f.v[i] - g.v[i];
   fe_weak(h);
 }
 
-__device__ __forceinline__ void fe_neg(fe& h, const fe& f) {
+TM_FN void fe_neg(fe& h, const fe& f) {
 #pragma unroll
   for (int i = 0; i < 10; i++) h.v[i] = -f.v[i];
   fe_weak(h);
 }
 
+// Column sums -> limbs: floor carries in ref10's interleaved order (two
+// chains for ILP).
+TM_FN void fe_carry_columns(fe& h, int64_t t[10]) {
+#define TM_CARRY(i)                                  \
+  {                                                  \
+    const int w = fe_width(i);                       \
+    const int64_t c = t[i] >> w;                     \
+    t[i] &= ((int64_t)1 << w) - 1;                   \
+    if ((i) == 9) t[0] += 19 * c; else t[(i) + 1] += c; \
+  }
+  TM_CARRY(0) TM_CARRY(4) TM_CARRY(1) TM_CARRY(5) TM_CARRY(2) TM_CARRY(6)
+  TM_CARRY(3) TM_CARRY(7) TM_CARRY(4) TM_CARRY(8) TM_CARRY(9) TM_CARRY(0)
+#undef TM_CARRY
+#pragma unroll
+  for (int i = 0; i < 10; i++) h.v[i] = (int32_t)t[i];
+}
+
 // h = f * g. Column k sums f_i g_j over i + j = k (mod 10), times 2 when
 // i and j are both odd and times 19 when i + j wraps past 10.
-__device__ __forceinline__ void fe_mul(fe& h, const fe& f, const fe& g) {
+TM_FN void fe_mul(fe& h, const fe& f, const fe& g) {
   int32_t g19[10], f2[10];
 #pragma unroll
   for (int i = 0; i < 10; i++) {
@@ -97,33 +136,42 @@ __device__ __forceinline__ void fe_mul(fe& h, const fe& f, const fe& g) {
     }
     t[k] = s;
   }
-  // floor carries in ref10's interleaved order (two chains for ILP)
-#define TM_CARRY(i)                                  \
-  {                                                  \
-    const int w = fe_width(i);                       \
-    const int64_t c = t[i] >> w;                     \
-    t[i] &= ((int64_t)1 << w) - 1;                   \
-    if ((i) == 9) t[0] += 19 * c; else t[(i) + 1] += c; \
-  }
-  TM_CARRY(0) TM_CARRY(4) TM_CARRY(1) TM_CARRY(5) TM_CARRY(2) TM_CARRY(6)
-  TM_CARRY(3) TM_CARRY(7) TM_CARRY(4) TM_CARRY(8) TM_CARRY(9) TM_CARRY(0)
-#undef TM_CARRY
-#pragma unroll
-  for (int i = 0; i < 10; i++) h.v[i] = (int32_t)t[i];
+  fe_carry_columns(h, t);
 }
 
-// Squaring as a multiplication: the simple first version (a dedicated
-// square would take 55 products instead of 100).
-__device__ __forceinline__ void fe_sq(fe& h, const fe& f) { fe_mul(h, f, f); }
+// h = f^2 in 55 products, limb for limb fe_mul(h, f, f) (see the top).
+TM_FN void fe_sq(fe& h, const fe& f) {
+  int32_t f2[10], f4[10], f19[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    f2[i] = 2 * f.v[i];
+    f4[i] = 4 * f.v[i];
+    f19[i] = 19 * f.v[i];
+  }
+  int64_t t[10];
+#pragma unroll
+  for (int k = 0; k < 10; k++) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+#pragma unroll
+    for (int j = i; j < 10; j++) {
+      const int w = (i != j ? 2 : 1) * ((i & 1) && (j & 1) ? 2 : 1);
+      const int32_t fl = w == 1 ? f.v[i] : (w == 2 ? f2[i] : f4[i]);
+      const int32_t fr = i + j >= 10 ? f19[j] : f.v[j];
+      t[(i + j) % 10] += (int64_t)fl * (int64_t)fr;
+    }
+  }
+  fe_carry_columns(h, t);
+}
 
-__device__ __forceinline__ void fe_nsq(fe& h, const fe& f, int n) {
+TM_FN void fe_nsq(fe& h, const fe& f, int n) {
   h = f;
 #pragma unroll 1
   for (int i = 0; i < n; i++) fe_sq(h, h);
 }
 
 // z^((p-5)/8) = z^(2^252 - 3), ref10's chain.
-static __device__ void fe_pow22523(fe& out, const fe& z) {
+TM_CALL void fe_pow22523(fe& out, const fe& z) {
   fe t0, t1, t2;
   fe_sq(t0, z);
   fe_nsq(t1, t0, 2);
@@ -150,7 +198,7 @@ static __device__ void fe_pow22523(fe& out, const fe& z) {
 }
 
 // z^(p-2) = z^(2^255 - 21); 0 maps to 0.
-static __device__ void fe_invert(fe& out, const fe& z) {
+TM_CALL void fe_invert(fe& out, const fe& z) {
   fe t0, t1, t2, t3;
   fe_sq(t0, z);
   fe_nsq(t1, t0, 2);
@@ -179,7 +227,7 @@ static __device__ void fe_invert(fe& out, const fe& z) {
 // The representative in [0, p), every limb in [0, 2^width): three
 // sequential floor-carry chains bring the value into [0, 2^255), then
 // V + 19 >= 2^255 says V >= p, and (V + 19) mod 2^255 = V - p.
-__device__ __forceinline__ void fe_canonical(fe& h, const fe& f) {
+TM_FN void fe_canonical(fe& h, const fe& f) {
   h = f;
 #pragma unroll
   for (int r = 0; r < 3; r++) {
@@ -205,7 +253,7 @@ __device__ __forceinline__ void fe_canonical(fe& h, const fe& f) {
   if (ge_p) h = t;
 }
 
-__device__ __forceinline__ void fe_tobytes(uint8_t s[32], const fe& f) {
+TM_FN void fe_tobytes(uint8_t s[32], const fe& f) {
   fe h;
   fe_canonical(h, f);
   uint64_t acc = 0;  // bit buffer, low bits first
@@ -225,7 +273,7 @@ __device__ __forceinline__ void fe_tobytes(uint8_t s[32], const fe& f) {
 }
 
 // 32 little-endian bytes; bit 255 is masked, y >= p is kept (used mod p).
-__device__ __forceinline__ void fe_frombytes(fe& h, const uint8_t* s) {
+TM_FN void fe_frombytes(fe& h, const uint8_t* s) {
   const int off[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
 #pragma unroll
   for (int i = 0; i < 10; i++) {
@@ -236,7 +284,7 @@ __device__ __forceinline__ void fe_frombytes(fe& h, const uint8_t* s) {
   }
 }
 
-__device__ __forceinline__ bool fe_eq(const fe& f, const fe& g) {
+TM_FN bool fe_eq(const fe& f, const fe& g) {
   fe a, b;
   fe_canonical(a, f);
   fe_canonical(b, g);
@@ -246,7 +294,7 @@ __device__ __forceinline__ bool fe_eq(const fe& f, const fe& g) {
   return eq;
 }
 
-__device__ __forceinline__ bool fe_iszero(const fe& f) {
+TM_FN bool fe_iszero(const fe& f) {
   fe a;
   fe_canonical(a, f);
   bool z = true;
@@ -255,23 +303,23 @@ __device__ __forceinline__ bool fe_iszero(const fe& f) {
   return z;
 }
 
-__device__ __forceinline__ bool fe_isneg(const fe& f) {
+TM_FN bool fe_isneg(const fe& f) {
   fe a;
   fe_canonical(a, f);
   return a.v[0] & 1;
 }
 
-__device__ __forceinline__ void fe_cmov(fe& h, const fe& g, bool b) {
+TM_FN void fe_cmov(fe& h, const fe& g, bool b) {
 #pragma unroll
   for (int i = 0; i < 10; i++) h.v[i] = b ? g.v[i] : h.v[i];
 }
 
-__device__ __forceinline__ void store_fe(int32_t* dst, const fe& f) {
+TM_FN void store_fe(int32_t* dst, const fe& f) {
 #pragma unroll
   for (int i = 0; i < 10; i++) dst[i] = f.v[i];
 }
 
-__device__ __forceinline__ void load_fe(fe& f, const int32_t* src) {
+TM_FN void load_fe(fe& f, const int32_t* src) {
 #pragma unroll
   for (int i = 0; i < 10; i++) f.v[i] = src[i];
 }

@@ -1,9 +1,11 @@
 // Twisted-Edwards point arithmetic for ed25519, one point per thread.
 //
 // Counterpart of the JAX package's ops/curve.py and of the port's plain
-// ops/curve.py, formula for formula (add-2008-hwcd-3, dbl-2008-hwcd with
-// a = -1, ref10's cached form), so that even the garbage point left by a
-// failed decompression maps to the same coordinates as in the other two.
+// ops/curve.py, formula for formula (dbl-2008-hwcd with a = -1, ref10's
+// cached and affine-cached additions; the unified add-2008-hwcd-3 is
+// ge_add_cached of q's cached form, with the same values), so that even
+// the garbage point left by a failed decompression maps to the same
+// coordinates as in the other two.
 #pragma once
 #include "fe25519.cuh"
 
@@ -33,38 +35,15 @@ struct TmConstants {
   uint64_t sha512_k[80];
 };
 
-__device__ __forceinline__ void ge_identity(ge_p3& p) {
+TM_FN void ge_identity(ge_p3& p) {
   fe_set_small(p.X, 0);
   fe_set_small(p.Y, 1);
   fe_set_small(p.Z, 1);
   fe_set_small(p.T, 0);
 }
 
-// complete unified addition (add-2008-hwcd-3), as curve.add
-__device__ __forceinline__ void ge_add(ge_p3& r, const ge_p3& p, const ge_p3& q, const fe& d2) {
-  fe a, b, c, d, e, f, g, h, t;
-  fe_sub(a, p.Y, p.X);
-  fe_sub(t, q.Y, q.X);
-  fe_mul(a, a, t);
-  fe_add(b, p.Y, p.X);
-  fe_add(t, q.Y, q.X);
-  fe_mul(b, b, t);
-  fe_mul(c, p.T, d2);
-  fe_mul(c, c, q.T);
-  fe_add(t, q.Z, q.Z);
-  fe_mul(d, p.Z, t);
-  fe_sub(e, b, a);
-  fe_sub(f, d, c);
-  fe_add(g, d, c);
-  fe_add(h, b, a);
-  fe_mul(r.X, e, f);
-  fe_mul(r.Y, g, h);
-  fe_mul(r.Z, f, g);
-  fe_mul(r.T, e, h);
-}
-
 // dbl-2008-hwcd with a = -1, as curve.double; T only when asked for
-__device__ __forceinline__ void ge_double(ge_p3& r, const ge_p3& p, bool want_t) {
+TM_FN void ge_double(ge_p3& r, const ge_p3& p, bool want_t) {
   fe a, b, c, d, e, f, g, h, t;
   fe_sq(a, p.X);
   fe_sq(b, p.Y);
@@ -84,7 +63,7 @@ __device__ __forceinline__ void ge_double(ge_p3& r, const ge_p3& p, bool want_t)
   fe_mul(r.Z, f, g);
 }
 
-__device__ __forceinline__ void ge_to_cached(ge_cached& c, const ge_p3& p, const fe& d2) {
+TM_FN void ge_to_cached(ge_cached& c, const ge_p3& p, const fe& d2) {
   fe_add(c.ypx, p.Y, p.X);
   fe_sub(c.ymx, p.Y, p.X);
   fe_add(c.z2, p.Z, p.Z);
@@ -92,7 +71,7 @@ __device__ __forceinline__ void ge_to_cached(ge_cached& c, const ge_p3& p, const
 }
 
 // p + q with q cached (ref10 ge_add), as curve.add_cached
-__device__ __forceinline__ void ge_add_cached(ge_p3& r, const ge_p3& p, const ge_cached& q, bool want_t) {
+TM_FN void ge_add_cached(ge_p3& r, const ge_p3& p, const ge_cached& q, bool want_t) {
   fe a, b, c, d, e, f, g, h;
   fe_sub(a, p.Y, p.X);
   fe_mul(a, a, q.ymx);
@@ -111,7 +90,7 @@ __device__ __forceinline__ void ge_add_cached(ge_p3& r, const ge_p3& p, const ge
 }
 
 // p + q with q affine-cached (ref10 ge_madd), as curve.madd
-__device__ __forceinline__ void ge_madd(ge_p3& r, const ge_p3& p, const ge_precomp& q, bool want_t) {
+TM_FN void ge_madd(ge_p3& r, const ge_p3& p, const ge_precomp& q, bool want_t) {
   fe a, b, c, d, e, f, g, h;
   fe_sub(a, p.Y, p.X);
   fe_mul(a, a, q.ymx);
@@ -129,27 +108,10 @@ __device__ __forceinline__ void ge_madd(ge_p3& r, const ge_p3& p, const ge_preco
   fe_mul(r.Z, f, g);
 }
 
-// Signed-window select: |digit| picks entry |digit| - 1, 0 gives the
-// cached identity (1, 1, 2, 0), a negative digit swaps Y+X with Y-X and
-// negates 2dT (as curve._select).
-__device__ __forceinline__ void ge_select_fix(ge_cached& c, int digit) {
-  if (digit == 0) {
-    fe_set_small(c.ypx, 1);
-    fe_set_small(c.ymx, 1);
-    fe_set_small(c.z2, 2);
-    fe_set_small(c.t2d, 0);
-  } else if (digit < 0) {
-    const fe t = c.ypx;
-    c.ypx = c.ymx;
-    c.ymx = t;
-    fe_neg(c.t2d, c.t2d);
-  }
-}
-
-// The affine-cached form of ge_select_fix: digit 0 gives the affine
-// identity (1, 1, 0), a negative digit swaps y+x with y-x and negates
-// 2dxy (as curve._select_affine).
-__device__ __forceinline__ void ge_precomp_fix(ge_precomp& c, int digit) {
+// Signed-window select on an affine-cached entry: digit 0 gives the
+// affine identity (1, 1, 0), a negative digit swaps y+x with y-x and
+// negates 2dxy (as curve._select_affine).
+TM_FN void ge_precomp_fix(ge_precomp& c, int digit) {
   if (digit == 0) {
     fe_set_small(c.ypx, 1);
     fe_set_small(c.ymx, 1);
@@ -163,7 +125,7 @@ __device__ __forceinline__ void ge_precomp_fix(ge_precomp& c, int digit) {
 }
 
 // y with the sign of x in bit 255; one inversion
-__device__ __forceinline__ void ge_encode(uint8_t s[32], const ge_p3& p) {
+TM_FN void ge_encode(uint8_t s[32], const ge_p3& p) {
   fe zi, x, y;
   fe_invert(zi, p.Z);
   fe_mul(x, p.X, zi);
@@ -176,7 +138,7 @@ __device__ __forceinline__ void ge_encode(uint8_t s[32], const ge_p3& p) {
 // y >= p is used mod p, x = 0 with the sign set is accepted. Returns
 // false when x^2 has no root; p then holds the same garbage point as the
 // other two versions.
-__device__ __forceinline__ bool ge_decompress(ge_p3& p, const uint8_t* s, const TmConstants& k) {
+TM_FN bool ge_decompress(ge_p3& p, const uint8_t* s, const TmConstants& k) {
   const bool sign = (s[31] >> 7) & 1;
   fe one, d, sqrtm1, yy, u, v, v3, v7, t, x, vxx, nu;
   fe_set_small(one, 1);

@@ -33,7 +33,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("ed25519_kernels.cu", "ed25519_tabled.cu", "sha256_kernels.cu", "bls12_kernels.cu", "bindings.cu")
-HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "sha512.cuh", "sha256.cuh", "fp381.cuh", "bls12_curve.cuh")
+HEADERS = ("fe25519.cuh", "ge25519.cuh", "ge25519_lanes.cuh", "lanes.cuh", "sc25519.cuh", "sha512.cuh", "sha256.cuh",
+           "fp381.cuh", "bls12_curve.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -115,7 +116,9 @@ def _declare(lib) -> None:
     lib.tm_ed25519_scan.argtypes = [vp, vp, vp, i32, vp, vp]
     lib.tm_ed25519_finish.argtypes = [vp, vp, vp, vp, vp, vp, i32, vp, vp, vp]
     lib.tm_set_comb.argtypes = [i32, vp, sz]
-    lib.tm_ed25519_build_tables.argtypes = [vp, i32, vp, vp, vp, vp]
+    lib.tm_ed25519_build_tables.argtypes = [vp, i32, vp, vp, vp]
+    lib.tm_ed25519_lanes.argtypes = [vp, vp]
+    lib.tm_ed25519_lanes.restype = None
     lib.tm_ed25519_prepare_tabled.argtypes = [vp, vp, i32, vp, i32, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, vp]
     lib.tm_ed25519_scan_tabled.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp, vp, vp]
     lib.tm_sha256_leaf_blocks.argtypes = [vp, vp, vp, i32, i32, vp, vp]

@@ -86,6 +86,18 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def lanes(device=None) -> dict:
+    """The lanes G that work one row of ed25519_scan and one validator of
+    ed25519_build_tables, as compiled into the library (loads it on
+    `device`, default cuda)."""
+    import ctypes
+
+    lib = _lib(torch.device("cuda" if device is None else device))
+    scan, build = ctypes.c_int(), ctypes.c_int()
+    lib.tm_ed25519_lanes(ctypes.byref(scan), ctypes.byref(build))
+    return {"ed25519_scan": scan.value, "ed25519_build_tables": build.value}
+
+
 # -- stage 1 ------------------------------------------------------------------
 
 
@@ -228,10 +240,9 @@ def build_valset_tables(pubkeys: torch.Tensor):
     if v:
         from tendermint_tpu_torch.ops._build import check
 
-        scratch = torch.empty((v, curve.SPLITS * curve.TBL, 10), dtype=torch.int32, device=dev)
         lib = _lib(dev)
         check(lib, lib.tm_ed25519_build_tables(
-            pubkeys.data_ptr(), v, tables.data_ptr(), a_ok.data_ptr(), scratch.data_ptr(), _stream(dev)),
+            pubkeys.data_ptr(), v, tables.data_ptr(), a_ok.data_ptr(), _stream(dev)),
             "ed25519_build_tables launch")
         build_valset_tables.launches += 1
     return tables, a_ok

@@ -1,0 +1,82 @@
+"""The ed25519 kernels' arithmetic as host C++ (``csrc/ed25519_host.cc``
+over ``csrc/fe25519.cuh``, ``csrc/ge25519.cuh`` and
+``csrc/ge25519_lanes.cuh``), built with ``g++`` and loaded with ctypes.
+
+Not a path of the port: the kernels run on the card only. This build runs
+the same formulas on the CPU, a row's lanes in turn over each stage, so
+the tests can hold them against the plain versions and the JAX package
+without a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+from tendermint_tpu_torch.ops.bls12_host import gxx
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = _CSRC / "ed25519_host.cc"
+
+
+class HostEd25519:
+    """The host build in `build_dir`; its constants set from the oracle
+    (``_build.constants_blob``, the kernels' own)."""
+
+    def __init__(self, build_dir) -> None:
+        from tendermint_tpu_torch.ops._build import constants_blob
+
+        out = Path(build_dir) / "libed25519_host.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([gxx(), "-std=c++17", "-O2", "-shared", "-fPIC", "-I", str(_CSRC), "-o", str(out), str(SOURCE)],
+                       check=True, capture_output=True, timeout=300)
+        lib = ctypes.CDLL(str(out))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ed_host_set_constants.argtypes = [vp, ctypes.c_size_t]
+        lib.ed_host_fe_op.argtypes = [i32, vp, vp, vp]
+        lib.ed_host_point_op.argtypes = [i32, vp, vp, i32, i32, i32]
+        lib.ed_host_scan_row.argtypes = [vp, vp, vp, vp, i32]
+        lib.ed_host_scan_row.restype = None
+        lib.ed_host_build_row.argtypes = [vp, vp, i32]
+        for fn in (lib.ed_host_set_constants, lib.ed_host_fe_op, lib.ed_host_point_op, lib.ed_host_build_row):
+            fn.restype = i32
+        blob = constants_blob()
+        if lib.ed_host_set_constants(blob, len(blob)) != 0:
+            raise RuntimeError("the host build's TmConstants struct differs from constants_blob()")
+        self.lib = lib
+
+    def fe_op(self, op: int, a, b=None) -> np.ndarray:
+        """op 0: fe_mul(a, b), 1: fe_sq(a), 2: fe_mul(a, a), on 10 int32 limbs."""
+        x = np.ascontiguousarray(a, dtype=np.int32)
+        y = np.ascontiguousarray(x if b is None else b, dtype=np.int32)
+        r = np.zeros(10, dtype=np.int32)
+        if self.lib.ed_host_fe_op(op, x.ctypes.data, y.ctypes.data, r.ctypes.data) != 0:
+            raise ValueError(f"no field op {op}")
+        return r
+
+    def point_op(self, op: int, p, q=None, digit: int = 1, want_t: bool = True, lanes: int = 4) -> np.ndarray:
+        """op 0: the staged doubling of p, 1: the staged cached addition
+        p + q (q cached, read through `digit`); (4, 10) int32 each."""
+        pt = np.array(p, dtype=np.int32).reshape(4, 10)
+        qq = np.ascontiguousarray(np.zeros((4, 10)) if q is None else q, dtype=np.int32)
+        if self.lib.ed_host_point_op(op, pt.ctypes.data, qq.ctypes.data, digit, int(want_t), lanes) != 0:
+            raise ValueError(f"no point op {op}")
+        return pt
+
+    def scan_row(self, sd, kd, neg_a, lanes: int = 4) -> np.ndarray:
+        """One ed25519_scan row: sd, kd (64,) int8, neg_a (4, 10) -> (4, 10) int32."""
+        s = np.ascontiguousarray(sd, dtype=np.int8)
+        k = np.ascontiguousarray(kd, dtype=np.int8)
+        a = np.ascontiguousarray(neg_a, dtype=np.int32)
+        out = np.zeros((4, 10), dtype=np.int32)
+        self.lib.ed_host_scan_row(out.ctypes.data, s.ctypes.data, k.ctypes.data, a.ctypes.data, lanes)
+        return out
+
+    def build_row(self, pk: bytes, lanes: int = 4):
+        """One ed25519_build_tables validator: (tables (16, 8, 3, 10) int32, a_ok)."""
+        out = np.zeros((16, 8, 3, 10), dtype=np.int32)
+        ok = self.lib.ed_host_build_row(out.ctypes.data, bytes(pk), lanes)
+        return out, bool(ok)

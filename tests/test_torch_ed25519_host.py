@@ -1,0 +1,167 @@
+"""The ed25519 kernels' formulas on the CPU: csrc/fe25519.cuh,
+csrc/ge25519.cuh and csrc/ge25519_lanes.cuh built as host C++
+(csrc/ed25519_host.cc, g++), held against the port's plain versions and
+the JAX package.
+
+Without nvcc the lane-staged code takes its portable branch: `par` runs a
+row's lanes in turn over each stage. So a row here computes what a row
+of ed25519_scan (G = 2, 4, 8) or a validator of ed25519_build_tables
+(G = 2, 4, 8, 16) computes on the card. Values are compared mod p (the
+limbs of two versions may differ for the same value); the squaring is
+compared limb for limb with the product it replaces. The library is
+built once for the module into a temporary directory; the JAX programs
+run once for the module, the scan eagerly and the table build jitted
+(the faster of the two for each, on this CPU).
+"""
+
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tendermint_tpu.ops import ed25519 as jed
+from tendermint_tpu.ops import field as jfield
+from tendermint_tpu_torch.ops import curve
+from tendermint_tpu_torch.ops import ed25519 as ted
+from tendermint_tpu_torch.ops import field as F
+from tendermint_tpu_torch.ops.ed25519_host import HostEd25519
+from tests.torch_port_helpers import adversarial_rows, stack
+
+P = F.P
+BOUND = 2**26 + 2**10  # fe25519.cuh's limb bound
+SCAN_LANES = (2, 4, 8)
+BUILD_LANES = (2, 4, 8, 16)
+rng = np.random.default_rng(20261019)
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on the PATH: the host build of the ed25519 headers needs a C++ compiler")
+    return HostEd25519(tmp_path_factory.mktemp("ed25519_host"))
+
+
+@pytest.fixture(scope="module")
+def batch():
+    rows, _ = adversarial_rows(seed=20261017)
+    pk, msg, sig = (torch.from_numpy(stack(rows, k)) for k in range(3))
+    sd, kd, neg_a, a_ok, _ = ted.verify_stage_prepare(pk, msg, sig)
+    assert not bool(a_ok[5]), "row 5's key does not decompress"
+    return pk, sd, kd, neg_a
+
+
+def _raw_limbs(x: int) -> np.ndarray:
+    """x < 2^255 split into the 10 limbs without reduction mod p."""
+    return np.array([(x >> o) & ((1 << w) - 1) for o, w in zip(F.OFFSETS, F.WIDTHS)], dtype=np.int32)
+
+
+def _value(limbs) -> int:
+    return F.from_limbs([int(v) for v in np.asarray(limbs).reshape(-1)])
+
+
+def _values(a) -> np.ndarray:
+    """(..., 10) limbs -> object array of their values mod p."""
+    a = np.asarray(a)
+    flat = a.reshape(-1, 10)
+    return np.array([_value(r) for r in flat], dtype=object).reshape(a.shape[:-1])
+
+
+def _jax_values(limbs) -> np.ndarray:
+    a = np.asarray(limbs)
+    flat = a.reshape(-1, a.shape[-1])
+    return np.array([jfield.from_limbs(r) for r in flat], dtype=object).reshape(a.shape[:-1])
+
+
+def test_fe_sq_is_fe_mul_limb_for_limb(host):
+    edges = [_raw_limbs(x) for x in (0, 1, P - 1, P, 2**255 - 1)]
+    edges += [np.full(10, BOUND, dtype=np.int32), np.full(10, -BOUND, dtype=np.int32),
+              np.array([BOUND, -BOUND] * 5, dtype=np.int32), np.array([-BOUND, BOUND] * 5, dtype=np.int32)]
+    rand = [rng.integers(-BOUND, BOUND + 1, 10).astype(np.int32) for _ in range(300)]
+    rand += [np.array(F.to_limbs(int.from_bytes(rng.bytes(32), "little")), dtype=np.int32) for _ in range(100)]
+    for a in edges + rand:
+        sq = host.fe_op(1, a)
+        np.testing.assert_array_equal(sq, host.fe_op(2, a), err_msg=str(a.tolist()))
+        assert _value(sq) == _value(a) ** 2 % P
+        assert np.abs(sq).max() <= BOUND
+    a, b = rand[0], rand[1]
+    assert _value(host.fe_op(0, a, b)) == _value(a) * _value(b) % P
+
+
+def _points(batch):
+    """The rows' -A as (N, 4, 10) int32 (the undecodable key's garbage
+    point among them) and, from them, cached points."""
+    neg_a = batch[3]
+    q = curve.Point(*(neg_a[:, i].to(torch.int64) for i in range(4)))
+    cached = torch.stack(list(curve.to_cached(curve.double(q))), dim=1).to(torch.int32)
+    return neg_a.numpy(), cached.numpy()
+
+
+@pytest.mark.parametrize("lanes", (2, 4, 8, 16))
+def test_staged_double_and_add_match_plain(host, batch, lanes):
+    pts, cached = _points(batch)
+    p = curve.Point(*(torch.from_numpy(pts[:, i]).to(torch.int64) for i in range(4)))
+    for want_t in (False, True):
+        want = torch.stack(list(curve.double(p, want_t=want_t)), dim=1).numpy()
+        got = np.stack([host.point_op(0, pts[r], want_t=want_t, lanes=lanes) for r in range(len(pts))])
+        np.testing.assert_array_equal(_values(got), _values(want))
+    digits = np.array([0, 1, -1, 3, -5, 8, -8, 2, 0, -3, 7, 4, -2, 6, -6, 5])
+    table = torch.from_numpy(cached).to(torch.int64)[:, None].expand(-1, 8, -1, -1)  # entry |d| - 1 = the row's point
+    for want_t in (False, True):
+        sel = curve._select(table.contiguous(), torch.from_numpy(np.where(digits == 0, 0, np.sign(digits))))
+        want = torch.stack(list(curve.add_cached(p, sel, want_t=want_t)), dim=1).numpy()
+        got = np.stack([host.point_op(1, pts[r], cached[r], int(np.sign(digits[r])), want_t, lanes)
+                        for r in range(len(pts))])
+        np.testing.assert_array_equal(_values(got), _values(want))
+
+
+@pytest.fixture(scope="module")
+def scan_want(batch):
+    """The rows' [s]B + [k](-A): the plain version's and the JAX stage's
+    (eager, on the same digits and -A) values."""
+    _pk, sd, kd, neg_a = batch
+    plain = _values(ted.scan_plain(sd, kd, neg_a).numpy())
+    nx, ny, nz, nt = (jnp.asarray(np.array([jfield.to_limbs(v) for v in _values(neg_a[:, i].numpy())]))
+                      for i in range(4))
+    jax_point = jed.verify_stage_scan(jnp.asarray(sd.numpy().astype(np.int32)),
+                                      jnp.asarray(kd.numpy().astype(np.int32)), nx, ny, nz, nt)
+    return plain, np.stack([_jax_values(c) for c in jax_point], axis=1)
+
+
+@pytest.mark.parametrize("lanes", SCAN_LANES)
+def test_scan_row_matches_plain_and_jax(host, batch, scan_want, lanes):
+    _pk, sd, kd, neg_a = batch
+    got = np.stack([host.scan_row(sd[r].numpy(), kd[r].numpy(), neg_a[r].numpy(), lanes) for r in range(sd.shape[0])])
+    assert (got[:, 3] == 0).all()
+    plain, jax_point = scan_want
+    np.testing.assert_array_equal(_values(got), plain)
+    np.testing.assert_array_equal(_values(got), jax_point)
+
+
+@pytest.fixture(scope="module")
+def build_want(batch):
+    """The keys' tables as canonical bytes, and a_ok: the plain version's
+    and the JAX program's (jitted once)."""
+    pk = batch[0]
+    tables, a_ok = ted.build_tables_plain(pk)
+    jt, ja = jax.jit(jed.build_valset_tables)(jnp.asarray(pk.numpy()))
+    jbytes = np.frombuffer(b"".join(jfield.from_limbs(r).to_bytes(32, "little")
+                                    for r in np.asarray(jt).reshape(-1, 20)), dtype=np.uint8)
+    return (F.to_bytes(tables.to(torch.int64)).numpy(), a_ok.numpy(),
+            jbytes.reshape(pk.shape[0], 16, 8, 3, 32), np.asarray(ja))
+
+
+@pytest.mark.parametrize("lanes", BUILD_LANES)
+def test_build_row_matches_plain_and_jax(host, batch, build_want, lanes):
+    pk = batch[0]
+    rows = [host.build_row(bytes(pk[v].tolist()), lanes) for v in range(pk.shape[0])]
+    got = F.to_bytes(torch.from_numpy(np.stack([t for t, _ in rows])).to(torch.int64)).numpy()
+    ok = np.array([a for _, a in rows])
+    plain, plain_ok, jax_bytes, jax_ok = build_want
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, jax_bytes)
+    np.testing.assert_array_equal(ok, plain_ok)
+    np.testing.assert_array_equal(ok, jax_ok)
+    assert not ok[5] and ok.sum() == pk.shape[0] - 1
