@@ -43,10 +43,13 @@ Phases (any failure raises and ends the run with a nonzero exit):
    byte seams, at the main path's shapes (all 10,000 validators' tables,
    the 9,510 present rows read through their validator index, templated
    sign-bytes) and on the 1,024-row adversarial batch with its keys as
-   the set (row r is validator r, a message matrix). Timing as in 4. The
-   lane group G that ed25519_scan and ed25519_build_tables were compiled
-   with (the other G are timed by scripts/ed25519_lane_sweep.py), and the
-   two kernels' registers, spill stores and loads and stack frame.
+   the set (row r is validator r, a message matrix); the tabled scan also
+   on a batch whose rows are not a multiple of a block's, with indices
+   out of range in the last group of a warp and in the last row (zeros
+   and a_ok 0). Timing as in 4. The lane group G that ed25519_scan,
+   ed25519_build_tables and ed25519_scan_tabled were compiled with (the
+   other G are timed by scripts/ed25519_lane_sweep.py), and the three
+   kernels' registers, spill stores and loads and stack frame.
 6. The merkle kernels (sha256_leaf_blocks, merkle_inner_level) against
    their plain versions, exactly at the (8, N) state seams, with every
    level on the card: on the 10,000 validators' leaves, on the
@@ -87,7 +90,10 @@ Phases (any failure raises and ends the run with a nonzero exit):
    oracle's cubed), pairing_value on 2 pairs (the oracle's cubed),
    map_to_g2 on 128 pairs (u = 0, u = 1, an exceptional u), g1_aggregate
    at 128, 4,096 and 10,000 points with ragged masks (empty, one point,
-   P + (-P), P + P, all, random). A per-signature commit (about 90 % for
+   P + (-P), P + P, all, random), and where a row's blocks meet: three
+   rows at 10,000 points (a chunk's sum S and -S in another block, whose
+   partial sums cancel; 90 % of the points; the first and last block's
+   points) and V below one chunk. A per-signature commit (about 90 % for
    the block, 5 % nil, 5 % absent) through ValidatorSet.verify_commit:
    one map and one pairing launch a call; a corrupted signature, a
    malformed 96-byte one and a 64-byte one, each with the JAX package's
@@ -100,8 +106,9 @@ Phases (any failure raises and ends the run with a nonzero exit):
    ed25519 kernels and the BLS map and pairing in one verify_commit.
    The kernels' rows at the commit's 120 rows: the lane group G that
    each of the map and pairing kernels was compiled with (the other G are
-   timed by scripts/bls_lane_sweep.py), each kernel's registers and stack
-   frame, the SASS of fp_mul in both of its forms, the Fp products one
+   timed by scripts/bls_lane_sweep.py), the aggregate's G, points a block
+   and blocks a row (other values: scripts/bls_aggregate_sweep.py), each
+   kernel's registers and stack frame, the SASS of fp_mul in both of its forms, the Fp products one
    row runs, counted on the host build of the kernels' headers (g++,
    which must compute the kernels' values on the same row).
 9. The mesh runtime (tendermint_tpu_torch/parallel). DeviceTopology.
@@ -380,10 +387,36 @@ def compare_tables(ed, field, pk, tables, a_ok, chunk: int = 1024):
     return err, plain_ms
 
 
+def tabled_edges_err(ed, field, tables, a_ok, sd8, kd, idx) -> int:
+    """ed25519_scan_tabled where its rows of G lanes meet their edges: a
+    batch whose row count is not a multiple of the rows a block (32 / G),
+    with indices out of range (-1, V, V + 7) in the last group of a warp
+    and in the last row. The in-range rows against the plain version, the
+    others zeros with a_ok 0; returns the largest seam difference."""
+    fb = lambda limbs: field.to_bytes(limbs.to(torch.int64))  # noqa: E731
+    per_block = 32 // ed.lanes()["ed25519_scan_tabled"]
+    m = max(per_block, kd.shape[0] // per_block - 1) * per_block + 3
+    m = min(m, kd.shape[0])
+    rows = torch.arange(m, device=kd.device)
+    e_idx = (rows.to(torch.int32) % tables.shape[0]) if idx is None else idx[:m].clone()
+    bad = torch.tensor([per_block - 1, 2 * per_block - 1, m - 1], device=kd.device)
+    bad = bad[bad < m]
+    e_idx[bad] = torch.tensor([-1, tables.shape[0], tables.shape[0] + 7], dtype=torch.int32,
+                              device=kd.device)[:bad.numel()]
+    point, row_ok = ed.verify_stage_scan_tabled(sd8[:m].contiguous(), kd[:m].contiguous(), tables, a_ok, e_idx)
+    good = torch.ones(m, dtype=torch.bool, device=kd.device)
+    good[bad] = False
+    ppoint, prow_ok = ed.scan_tabled_plain(sd8[:m][good], kd[:m][good], tables, a_ok, e_idx[good])
+    torch.cuda.synchronize()
+    return max(seam_err(fb(point[good]), fb(ppoint)), seam_err(row_ok[good], prow_ok),
+               int(point[bad].abs().max().item()), int(row_ok[bad].any().item()))
+
+
 def compare_tabled(ed, field, tables, a_ok, pk_all, sig, src):
     """ed25519_prepare_tabled and ed25519_scan_tabled against their plain
     versions on the same inputs (`src`: idx, and msgs or templates,
-    tmpl_idx, ts8); returns ({kernel: largest seam difference}, ok)."""
+    tmpl_idx, ts8), the scan also at its edges (tabled_edges_err);
+    returns ({kernel: largest seam difference}, ok)."""
     fb = lambda limbs: field.to_bytes(limbs.to(torch.int64))  # noqa: E731
     prep = ed.verify_stage_prepare_tabled(pk_all, sig, **src)
     plain = ed.prepare_tabled_plain(pk_all, sig, **src)
@@ -391,7 +424,8 @@ def compare_tabled(ed, field, tables, a_ok, pk_all, sig, src):
     idx = src.get("idx")
     point, row_ok = ed.verify_stage_scan_tabled(prep[0], prep[1], tables, a_ok, idx)
     ppoint, prow_ok = ed.scan_tabled_plain(prep[0], prep[1], tables, a_ok, idx)
-    err_scan = max(seam_err(fb(point), fb(ppoint)), seam_err(row_ok, prow_ok))
+    err_scan = max(seam_err(fb(point), fb(ppoint)), seam_err(row_ok, prow_ok),
+                   tabled_edges_err(ed, field, tables, a_ok, prep[0], prep[1], idx))
     ok = ed.verify_stage_finish(point, sig, row_ok, prep[2])
     torch.cuda.synchronize()
     return {"ed25519_prepare_tabled": err_prep, "ed25519_scan_tabled": err_scan}, ok
@@ -1058,9 +1092,23 @@ N_AGG = (128, 4096, 10_000)
 # root as two Fp powers); SvdW as RFC 9380's straight line; [H2] over its
 # NAF in Jacobian coordinates (a doubling 2 m2 + 5 s2, a mixed addition
 # 7 m2 + 4 s2) from an affine base; a G1 sum by complete mixed additions
-# (RCB15 algorithm 8: 11). What the kernels run is counted on the host
-# build of their own headers (csrc/bls12_host.cc, whose portable fp_mul
-# counts): one row's Fp products, `kernel_fp_muls`.
+# (RCB15 algorithm 8: 11) and its normalisation, two products and one
+# inversion by a binary GCD (GCD_INV_OPS; Fermat's window chain, the
+# bound before the aggregate's redesign, is kept beside it). What the
+# kernels run is counted on the host build of their own headers
+# (csrc/bls12_host.cc, whose portable fp_mul counts): one row's Fp
+# products, `kernel_fp_muls`.
+# An inversion mod p by a binary GCD, the fewest divsteps of the forms
+# known (Pornin's optimised binary GCD; the kernel runs Bernstein and
+# Yang's, which may take more): 2 len(p) - 1 = 761 divsteps, each at
+# least a compare, a subtraction and a shift of a 64-bit approximation
+# (six 32-bit instructions), and for each batch of 30 the 2x2 matrix
+# applied to a and b and, mod p, to u and v: ten products of a 13-limb
+# number by a 30-bit factor (the last two Montgomery corrections), 13
+# multiply-adds each. Counted as 2 operations an instruction, like a
+# multiply-add.
+GCD_DIVSTEPS = 2 * 381 - 1
+GCD_INV_OPS = 2 * (6 * GCD_DIVSTEPS + -(-GCD_DIVSTEPS // 30) * 10 * 13)
 FP_MUL_PROBE = r"""
 #include "fp381.cuh"
 using namespace bls;
@@ -1175,7 +1223,7 @@ def bls_needed_fp_muls(ref) -> dict:
     h2 = (len(naf) - 1) * g2_dbl + (sum(1 for d in naf if d) - 1) * g2_madd
     return {"bls12_pairing_check": miller + easy + hard,
             "bls12_map_to_g2": 2 * svdw + g2_madd + to_affine + h2 + to_affine,
-            "bls12_g1_aggregate": (11, inv + 2 - 11)}
+            "bls12_g1_aggregate": (11, 2 - 11), "bls12_g1_aggregate_fermat_inversion": inv}
 
 
 def kernel_fp_muls(host, stage) -> int:
@@ -1344,8 +1392,45 @@ def bls_kernel_seams(bls, ref, rng, vs, commit, card):
             require(got[r] == acc, f"g1_aggregate at {v}, mask row {r}: = the oracle")
         require(got[0] is None and got[2] is None, "the empty mask and P + (-P) are the identity")
         agg_inputs[v] = (pt, mk)
-    print(f"  g1_aggregate at V = {N_AGG} (empty mask, one point, P + (-P), P + P, all, ragged): = the oracle, seams "
-          f"identical to the plain version ({time.perf_counter() - t1:.1f} s)")
+    # where a row's blocks meet: B = 3 rows at 10,000 points, one whose
+    # first chunk sums to S with -S in another chunk (the two blocks'
+    # partial sums cancel); and V below one chunk
+    chunk = bls.lanes()["bls12_g1_aggregate_chunk"]
+    v = N_AGG[-1]
+    s_idx = list(range(chunk))
+    neg_s = ref.g1_neg(ref.g1_add(ref.g1_mul(len(s_idx), base), ref.g1_mul(sum(s_idx), ref.G1_GEN)))
+    at = v // 2 + 1
+    pts = table[:v]
+    pts[at] = neg_s
+    masks = np.zeros((3, v), dtype=bool)
+    masks[0, s_idx + [at]] = True          # S + (-S): partial sums that cancel
+    masks[1] = rng.random(v) < 0.9         # a commit's signers
+    masks[1, at] = False
+    masks[2, [3, v - 1]] = True            # two points, first and last block
+    edge_cases = [(pts, masks)]
+    small = chunk // 2 - 1
+    sm = np.zeros((3, small), dtype=bool)
+    sm[0] = True
+    sm[1] = rng.random(small) < 0.5
+    edge_cases.append((table[:small], sm))
+    for pts_e, masks_e in edge_cases:
+        pt = bls.g1_tensor(pts_e, dev)
+        mk = torch.from_numpy(masks_e).to(dev)
+        out, inf = bls.g1_aggregate(pt, mk)
+        pout, pinf = bls.aggregate_plain(pt, mk)
+        errs["bls12_g1_aggregate"] = max(errs["bls12_g1_aggregate"], seam_err(out, pout), seam_err(inf, pinf))
+        got = bls.g1_points(out, inf)
+        for r in range(masks_e.shape[0]):
+            acc = None
+            for i in np.flatnonzero(masks_e[r]):
+                acc = ref.g1_add(acc, neg_s if (len(pts_e) == v and i == at) else table[int(i)])
+            require(got[r] == acc, f"g1_aggregate at {len(pts_e)} points (chunk {chunk}), row {r}: = the oracle")
+    require(bls.g1_points(*bls.g1_aggregate(bls.g1_tensor(pts, dev), torch.from_numpy(masks[:1]).to(dev)))[0]
+            is None, "partial sums that cancel across blocks give the identity")
+    print(f"  g1_aggregate at V = {N_AGG} (empty mask, one point, P + (-P), P + P, all, ragged), B = 3 at {v} "
+          f"(a chunk's sum S and -S in another block, 90 % of the points, the first and last block) and V = "
+          f"{small} (below one chunk of {chunk}): = the oracle, seams identical to the plain version "
+          f"({time.perf_counter() - t1:.1f} s)")
     require(all(e == 0 for e in errs.values()), f"BLS kernels identical to their plain versions: {errs}")
     return errs, (pk, hm, sg), agg_inputs
 
@@ -1562,7 +1647,7 @@ def phase8(card, kernels):
     # the Fp products one row runs, on the host build of the kernels'
     # headers, which computes the kernels' values: row 0 of each
     from tendermint_tpu_torch.ops import _build
-    from tendermint_tpu_torch.ops.bls12_host import HostBLS
+    from tendermint_tpu_torch.ops.bls12_host import AGG_CHUNK, AGG_LANES, HostBLS
 
     host = HostBLS(_build.BUILD_DIR / "bls12_host")
     raw = lambda t: t.cpu().numpy().tobytes()  # noqa: E731
@@ -1574,9 +1659,13 @@ def phase8(card, kernels):
         host, lambda: host_out.update(pairing=host.pairing_row(raw(pk_t[0]), raw(hm_t[0]), raw(sg_t[0]))))
     run_muls["bls12_map_to_g2"] = kernel_fp_muls(host, lambda: host_out.update(map=host.map_row(raw(u0[0]), raw(u1[0]))))
     agg_run = {}
+    compiled = bls.lanes()
+    require((compiled["bls12_g1_aggregate_chunk"], compiled["bls12_g1_aggregate"]) == (AGG_CHUNK, AGG_LANES),
+            f"ops/bls12_host.py's AGG_CHUNK, AGG_LANES are the compiled values: {compiled}")
     for v in N_AGG:
         pv_, mv_ = agg_inputs[v]
-        agg_run[v] = kernel_fp_muls(host, lambda: host_out.update({v: host.g1_sum(raw(pv_), raw(mv_[4]))}))
+        agg_run[v] = kernel_fp_muls(host, lambda: host_out.update({v: host.g1_sum(
+            raw(pv_), raw(mv_[4]), compiled["bls12_g1_aggregate_chunk"], compiled["bls12_g1_aggregate"])}))
     run_muls["bls12_g1_aggregate"] = agg_run[N_AGG[0]]
     require(host_out["pairing"] == (bool(ok0[0]), raw(v0[0])) and host_out["map"] == (raw(q0[0, 0]), raw(q0[0, 1]),
                                                                                       bool(inf0[0]))
@@ -1584,6 +1673,7 @@ def phase8(card, kernels):
             "the host build of the kernels' headers computes the kernels' values")
     needed = bls_needed_fp_muls(ref)
     per_point, fixed = needed.pop("bls12_g1_aggregate")
+    fermat_inv = needed.pop("bls12_g1_aggregate_fermat_inversion")
     agg_muls = {v: per_point * int(agg_inputs[v][1][4].sum()) + fixed for v in N_AGG}
     muls = {**needed, "bls12_g1_aggregate": agg_muls[N_AGG[0]]}
     forms = fp_mul_instructions()
@@ -1604,7 +1694,12 @@ def phase8(card, kernels):
           + "; ".join(f"{k} {u.get('registers')} / {u.get('stack_frame')} / {u.get('cumulative_stack')}"
                       for k, u in usage.items()))
     kept = bls.lanes()
-    print("  lanes a row (G, compiled in): " + ", ".join(f"{k} {g}" for k, g in kept.items()))
+    agg_chunk = kept.pop("bls12_g1_aggregate_chunk")
+    agg_blocks = {v: max(1, -(-v // agg_chunk)) for v in N_AGG}
+    print("  lanes a row, an addition of the aggregate (G, compiled in): "
+          + ", ".join(f"{k} {g}" for k, g in kept.items())
+          + f"; the aggregate's points a block {agg_chunk}, blocks a row "
+          + ", ".join(f"{b} at {v}" for v, b in agg_blocks.items()))
     runs = {
         "bls12_pairing_check": (lambda: bls.pairing_check_rows(pk_t, hm_t, sg_t),
                                 lambda: bls.pairing_plain(pk_t, hm_t, sg_t), n_rows, 5),
@@ -1622,7 +1717,7 @@ def phase8(card, kernels):
             "bls12_map_to_g2": None, "bls12_g1_aggregate": None}
     rows_out = {}
     for name, (kern, plain, nrows, reps) in runs.items():
-        ops = nrows * muls[name] * ops_per_fp_mul
+        ops = nrows * muls[name] * ops_per_fp_mul + (GCD_INV_OPS if name == "bls12_g1_aggregate" else 0)
         row = kernel_row(name, "bls12_kernels.cu", n_sig[name] if name != "bls12_g1_aggregate" else n_agg[name],
                          errs[name], median_ms(kern, reps=reps, repeats=3), median_ms(plain, reps=1, repeats=2),
                          io[name], ops, nrows, muls[name])
@@ -1633,13 +1728,19 @@ def phase8(card, kernels):
         if name in kept:
             row["lanes"] = kept[name]
         rows_out[name] = row
-    for v in N_AGG[1:]:
+    agg_row = rows_out["bls12_g1_aggregate"]
+    agg_row.update(chunk=agg_chunk, blocks_per_row={v: agg_blocks[v] for v in N_AGG}, inversion_ops=GCD_INV_OPS)
+    for v in N_AGG:
+        agg_row[f"bound_ms_fermat_inversion_at_{v}"] = (1e3 * (agg_muls[v] + fermat_inv) * ops_per_fp_mul
+                                                         / INT32_MAD_OPS_PER_S)
+        if v == N_AGG[0]:
+            continue
         pv_, mv_ = agg_inputs[v]
         m1 = mv_[4:5].contiguous()
-        rows_out["bls12_g1_aggregate"][f"ms_at_{v}"] = median_ms(lambda: bls.g1_aggregate(pv_, m1), reps=10, repeats=3)
-        rows_out["bls12_g1_aggregate"][f"ms_device_only_at_{v}"] = device_ms(lambda: bls.g1_aggregate(pv_, m1), reps=10)
-        rows_out["bls12_g1_aggregate"][f"bound_ms_at_{v}"] = 1e3 * agg_muls[v] * ops_per_fp_mul / INT32_MAD_OPS_PER_S
-        rows_out["bls12_g1_aggregate"][f"fp_muls_run_at_{v}"] = agg_run[v]
+        agg_row[f"ms_at_{v}"] = median_ms(lambda: bls.g1_aggregate(pv_, m1), reps=10, repeats=3)
+        agg_row[f"ms_device_only_at_{v}"] = device_ms(lambda: bls.g1_aggregate(pv_, m1), reps=10)
+        agg_row[f"bound_ms_at_{v}"] = 1e3 * (agg_muls[v] * ops_per_fp_mul + GCD_INV_OPS) / INT32_MAD_OPS_PER_S
+        agg_row[f"fp_muls_run_at_{v}"] = agg_run[v]
     for k in kernels.values():
         k["launches_bls_commit"] = n_sig.get(k["name"], 0)
         k["launches_bls_mixed_set"] = n_mix.get(k["name"], 0)

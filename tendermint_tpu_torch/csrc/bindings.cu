@@ -17,6 +17,7 @@ cudaError_t set_comb(const void* host, size_t bytes);
 cudaError_t launch_build_tables(const uint8_t*, int, int32_t*, uint8_t*, cudaStream_t);
 int scan_lanes();
 int build_lanes();
+int scan_tabled_lanes();
 cudaError_t launch_prepare_tabled(const uint8_t*, const int32_t*, int, const uint8_t*, int, const uint8_t*, int,
                                   const int32_t*, const uint8_t*, int, const uint8_t*, int, int8_t*, int8_t*,
                                   uint8_t*, cudaStream_t);
@@ -25,11 +26,13 @@ cudaError_t launch_scan_tabled(const int8_t*, const int8_t*, const int32_t*, con
 cudaError_t launch_sha256_leaf_blocks(const uint8_t*, const int32_t*, const int32_t*, int, int, uint32_t*, cudaStream_t);
 cudaError_t launch_merkle_inner_level(const uint32_t*, int, int, uint32_t*, cudaStream_t);
 cudaError_t set_bls_constants(const void* host, size_t bytes);
-void bls12_lanes(int* pairing, int* map);
+void bls12_lanes(int* pairing, int* map, int* aggregate, int* chunk);
 cudaError_t launch_bls12_pairing_check(const uint8_t*, const uint8_t*, const uint8_t*, int, int, uint8_t*, uint8_t*,
                                        cudaStream_t);
 cudaError_t launch_bls12_map_to_g2(const uint8_t*, const uint8_t*, int, uint8_t*, uint8_t*, cudaStream_t);
-cudaError_t launch_bls12_g1_aggregate(const uint8_t*, const uint8_t*, int, int, uint8_t*, uint8_t*, cudaStream_t);
+size_t bls12_g1_aggregate_scratch(int b, int v);
+cudaError_t launch_bls12_g1_aggregate(const uint8_t*, const uint8_t*, int, int, uint8_t*, uint8_t*, uint8_t*,
+                                      cudaStream_t);
 }  // namespace tmk
 
 extern "C" {
@@ -75,11 +78,12 @@ int tm_ed25519_build_tables(const void* pk, int v, void* tables, void* a_ok, voi
   return (int)tmk::launch_build_tables((const uint8_t*)pk, v, (int32_t*)tables, (uint8_t*)a_ok, (cudaStream_t)stream);
 }
 
-// The lanes that work one row of ed25519_scan and one validator of
-// ed25519_build_tables (G, compiled in).
-void tm_ed25519_lanes(int* scan, int* build) {
+// The lanes that work one row of ed25519_scan, one validator of
+// ed25519_build_tables and one row of ed25519_scan_tabled (G, compiled in).
+void tm_ed25519_lanes(int* scan, int* build, int* scan_tabled) {
   *scan = tmk::scan_lanes();
   *build = tmk::build_lanes();
+  *scan_tabled = tmk::scan_tabled_lanes();
 }
 
 int tm_ed25519_prepare_tabled(const void* pk_all, const void* idx, int v, const void* msg, int mlen,
@@ -115,9 +119,12 @@ int tm_set_bls_constants(int device, const void* host, size_t bytes) {
   return (int)tmk::set_bls_constants(host, bytes);
 }
 
-// The lanes that work one row of the pairing and of the map kernel (G,
-// compiled in).
-void tm_bls12_lanes(int* pairing, int* map) { tmk::bls12_lanes(pairing, map); }
+// The lanes that work one row of the pairing and of the map kernel, one
+// addition of the aggregate (G, compiled in), and the aggregate's points a
+// block.
+void tm_bls12_lanes(int* pairing, int* map, int* aggregate, int* chunk) {
+  tmk::bls12_lanes(pairing, map, aggregate, chunk);
+}
 
 int tm_bls12_pairing_check(const void* pk, const void* hm, const void* sig, int n, int pairs, void* value, void* ok,
                            void* stream) {
@@ -130,8 +137,13 @@ int tm_bls12_map_to_g2(const void* u0, const void* u1, int n, void* q, void* inf
                                          (cudaStream_t)stream);
 }
 
-int tm_bls12_g1_aggregate(const void* points, const void* mask, int b, int v, void* out, void* inf, void* stream) {
-  return (int)tmk::launch_bls12_g1_aggregate((const uint8_t*)points, (const uint8_t*)mask, b, v, (uint8_t*)out,
+// Bytes of the scratch a call of B rows over V points needs.
+size_t tm_bls12_g1_aggregate_scratch(int b, int v) { return tmk::bls12_g1_aggregate_scratch(b, v); }
+
+int tm_bls12_g1_aggregate(const void* points, const void* mask, int b, int v, void* scratch, void* out, void* inf,
+                          void* stream) {
+  return (int)tmk::launch_bls12_g1_aggregate((const uint8_t*)points, (const uint8_t*)mask, b, v,
+                                            (uint8_t*)scratch, (uint8_t*)out,
                                             (uint8_t*)inf, (cudaStream_t)stream);
 }
 

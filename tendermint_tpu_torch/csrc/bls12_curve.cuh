@@ -34,16 +34,30 @@
 // sums handled, so the result is the complete formula's), normalised to
 // affine: three inversions or roots in sequence and one inversion.
 //
-// The G1 sum of bls12_g1_aggregate keeps one thread's complete additions
-// (Renes-Costello-Batina 2015, algorithm 7, a = 0) on homogeneous
-// projective points, the identity (0 : 1 : 0).
+// The G1 sum of bls12_g1_aggregate: complete additions (Renes-Costello-
+// Batina 2015, algorithms 7 and 8, a = 0) in two stages of six products on
+// a group of lanes, a row's points spread over blocks, one inversion by a
+// binary GCD (fp381.cuh) at the end.
 #pragma once
 #include "fp381.cuh"
 #include "lanes.cuh"
 
 namespace bls {
 
-// -- G1: complete addition (the aggregate) ---------------------------------------
+// -- a row's lanes (lanes.cuh) -----------------------------------------------------
+
+using ::Lanes;
+using ::par;
+
+// -- G1: the aggregate's sum on a group of lanes -----------------------------------
+//
+// Complete additions (Renes-Costello-Batina 2015, algorithm 7, a = 0) on
+// homogeneous projective points, the identity (0 : 1 : 0), cut into two
+// stages of six independent products with additions between them, on a
+// group of G lanes (as a pairing row's stages). Affine operands take the
+// mixed form (algorithm 8, Z2 = 1: 11 products), the same values as
+// algorithm 7 with Z2 = 1. Complete: coincident points, a point and its
+// negation and the identity take no special path.
 
 // 3b times a, by additions: 12 a (b = 4).
 BLS_FN void mul_b3(Fp& r, const Fp& a) {
@@ -57,64 +71,217 @@ BLS_FN void mul_b3(Fp& r, const Fp& a) {
 template <class F>
 struct Proj { F X, Y, Z; };
 
-// (X1 : Y1 : Z1) + (X2 : Y2 : Z2) (RCB15 algorithm 7), 12 multiplications.
-BLS_NOINLINE void g1_add(Proj<Fp>& r, const Proj<Fp>& p, const Proj<Fp>& q) {
-  Fp t0, t1, t2, t3, t4, ty, s, u;
-  fp_mul(t0, p.X, q.X);
-  fp_mul(t1, p.Y, q.Y);
-  fp_mul(t2, p.Z, q.Z);
-  fp_add(s, p.X, p.Y);
-  fp_add(u, q.X, q.Y);
-  fp_mul(t3, s, u);
-  fp_add(s, t0, t1);
-  fp_sub(t3, t3, s);  // X1 Y2 + X2 Y1
-  fp_add(s, p.Y, p.Z);
-  fp_add(u, q.Y, q.Z);
-  fp_mul(t4, s, u);
-  fp_add(s, t1, t2);
-  fp_sub(t4, t4, s);  // Y1 Z2 + Y2 Z1
-  fp_add(s, p.X, p.Z);
-  fp_add(u, q.X, q.Z);
-  fp_mul(ty, s, u);
-  fp_add(s, t0, t2);
-  fp_sub(ty, ty, s);  // X1 Z2 + X2 Z1
-  fp_add(s, t0, t0);
-  fp_add(t0, s, t0);  // 3 X1 X2
-  mul_b3(t2, t2);
-  mul_b3(ty, ty);
-  Fp z3s, t1s;
-  fp_add(z3s, t1, t2);
-  fp_sub(t1s, t1, t2);
-  fp_mul(s, t3, t1s);
-  fp_mul(u, t4, ty);
-  fp_sub(r.X, s, u);
-  fp_mul(s, t1s, z3s);
-  fp_mul(u, ty, t0);
-  fp_add(r.Y, s, u);
-  fp_mul(s, z3s, t4);
-  fp_mul(u, t0, t3);
-  fp_add(r.Z, s, u);
+// A group's state in shared memory: its running sum, each stage's products.
+struct G1Group {
+  Proj<Fp> acc;
+  Fp s[6];  // stage one: X1 X2, Y1 Y2, Z1 Z2 and the three cross products
+  Fp u[6];  // stage two
+};
+
+// g.acc <- g.acc + q, q = (X, Y, Z) at q[0..2]; `mixed`: q affine (q[2] is
+// not read). Three stages: the six products of the inputs (five and a
+// copy when mixed), the six products of their sums, X3 Y3 Z3. No item of
+// a stage reads what another writes: stage two reads s (and, mixed, X1
+// Y1 of acc), stage three reads u and writes acc.
+BLS_NOINLINE void g1_add_stages(const Lanes& L, G1Group& g, const Fp* q, bool mixed) {
+  const Fp* P = &g.acc.X;
+  par(L, 6, [&](int i) {
+    Fp a, b;
+    if (i < 3) {
+      if (mixed && i == 2) {  // Z1 Z2 = Z1
+        g.s[2] = P[2];
+        return;
+      }
+      a = P[i];
+      b = q[i];
+    } else if (i == 3) {  // (X1 + Y1)(X2 + Y2)
+      fp_add(a, P[0], P[1]);
+      fp_add(b, q[0], q[1]);
+    } else {  // i = 4: (Y1 + Z1)(Y2 + Z2) or Z1 Y2; i = 5: (X1 + Z1)(X2 + Z2) or Z1 X2
+      const int c = i == 4 ? 1 : 0;
+      if (mixed) {
+        a = P[2];
+        b = q[c];
+      } else {
+        fp_add(a, P[c], P[2]);
+        fp_add(b, q[c], q[2]);
+      }
+    }
+    Fp r;
+    fp_mul(r, a, b);
+    g.s[i] = r;
+  });
+  // the sums: t3 = X1 Y2 + X2 Y1, t4 = Y1 Z2 + Y2 Z1, ty = X1 Z2 + X2 Z1,
+  // then 3 t0, 3b t2, 3b ty; item k of stage two multiplies terms
+  // (t3, t1 - 3b t2), (t4, 3b ty), (t1 - 3b t2, t1 + 3b t2), (3b ty, 3 t0),
+  // (t1 + 3b t2, t4), (3 t0, t3)
+  par(L, 6, [&](int i) {
+    auto term = [&](int k, Fp& r) {
+      Fp t, w;
+      switch (k) {
+        case 0:  // t3
+          fp_add(t, g.s[0], g.s[1]);
+          fp_sub(r, g.s[3], t);
+          break;
+        case 1:  // t4
+          if (mixed) {
+            fp_add(r, g.s[4], P[1]);
+          } else {
+            fp_add(t, g.s[1], g.s[2]);
+            fp_sub(r, g.s[4], t);
+          }
+          break;
+        case 2:  // 3b ty
+          if (mixed) {
+            fp_add(t, g.s[5], P[0]);
+          } else {
+            fp_add(w, g.s[0], g.s[2]);
+            fp_sub(t, g.s[5], w);
+          }
+          mul_b3(r, t);
+          break;
+        case 3:  // 3 t0
+          fp_dbl(t, g.s[0]);
+          fp_add(r, t, g.s[0]);
+          break;
+        case 4:  // t1 - 3b t2
+          mul_b3(t, g.s[2]);
+          fp_sub(r, g.s[1], t);
+          break;
+        default:  // t1 + 3b t2
+          mul_b3(t, g.s[2]);
+          fp_add(r, g.s[1], t);
+          break;
+      }
+    };
+    Fp a, b, r;
+    term((0x352410 >> (4 * i)) & 15, a);  // 0, 1, 4, 2, 5, 3
+    term((0x013524 >> (4 * i)) & 15, b);  // 4, 2, 5, 3, 1, 0
+    fp_mul(r, a, b);
+    g.u[i] = r;
+  });
+  // X3 = t3 (t1 - 3b t2) - t4 3b ty, Y3 = (t1 - 3b t2)(t1 + 3b t2) + 3b ty 3 t0,
+  // Z3 = (t1 + 3b t2) t4 + 3 t0 t3
+  par(L, 3, [&](int i) {
+    Fp r;
+    if (i == 0)
+      fp_sub(r, g.u[0], g.u[1]);
+    else
+      fp_add(r, g.u[2 * i], g.u[2 * i + 1]);
+    (&g.acc.X)[i] = r;
+  });
 }
 
-BLS_FN void g1_identity(Proj<Fp>& r) {
-  fp_zero(r.X);
-  fp_one(r.Y);
-  fp_zero(r.Z);
+// g.acc <- q (Z = 1 when `affine`).
+BLS_FN void g1_set(const Lanes& L, G1Group& g, const Fp* q, bool affine) {
+  par(L, 3, [&](int i) {
+    if (affine && i == 2)
+      fp_one(g.acc.Z);
+    else
+      (&g.acc.X)[i] = q[i];
+  });
 }
 
-// (X : Y : Z) -> affine (X/Z, Y/Z); true for the identity (Z = 0).
-BLS_FN bool g1_normalize(Fp& x, Fp& y, const Proj<Fp>& p) {
-  Fp zi;
-  fp_inv(zi, p.Z);
-  fp_mul(x, p.X, zi);
-  fp_mul(y, p.Y, zi);
-  return fp_is_zero(p.Z);
+// -- the aggregate's work, step by step (bls12_g1_aggregate) -----------------------
+//
+// A batch row's points are cut into chunks of CHUNK, a block of 128
+// threads a chunk, G lanes a group (K = 128 / G groups). A block packs a
+// round of up to 128 selected points (affine, Montgomery form) into shared
+// memory, one a thread; group k adds up points k, k + K, ... of the
+// round into its running sum (the first one taken as it is); the groups'
+// sums are added in a tree; the block's sum goes to its slot of the
+// scratch (36 words, the identity if it selected nothing). The last block
+// of the row to finish (a counter per row) adds up the row's partial sums
+// the same way and normalises: x = X / Z, y = Y / Z by one inversion
+// (fp_inv_gcd); the identity (Z = 0) gives zeros and its flag. Each step
+// runs a group at a time, between the block's barriers; the host build
+// (bls12_host.cc) runs the groups in turn.
+
+constexpr int kAggThreads = 128;
+constexpr int kAggWords = 3 * NL;  // a projective partial sum
+
+template <int K>
+struct AggBlock {
+  G1Group grp[K];
+  Fp pts[kAggThreads][2];  // a round's points; then each group's loaded partial
+  int have[K];             // whether group k's sum holds a point
+  int wsel[kAggThreads / 32];
+  int last;
+};
+
+template <int K>
+BLS_FN Proj<Fp>& agg_partial_slot(AggBlock<K>& S, int k) {
+  static_assert(K * sizeof(Proj<Fp>) <= sizeof(S.pts), "the partials' slots fit the points' room");
+  return reinterpret_cast<Proj<Fp>*>(&S.pts[0][0])[k];
 }
 
-// -- a row's lanes (lanes.cuh) -----------------------------------------------------
+// Group k's share of a round of n packed points.
+BLS_FN void agg_sum_points(const Lanes& L, G1Group& g, const Fp (*pts)[2], int k, int n, int stride, bool& have) {
+  for (int j = k; j < n; j += stride) {
+    if (have) {
+      g1_add_stages(L, g, pts[j], true);
+    } else {
+      g1_set(L, g, pts[j], true);
+      have = true;
+    }
+  }
+}
 
-using ::Lanes;
-using ::par;
+BLS_FN uint32_t agg_load(const uint32_t* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldcg(p);  // another block's write: read it from L2
+#else
+  return *p;
+#endif
+}
+
+// Group k's share of the row's n partial sums (36 words each), through
+// its slot q.
+BLS_FN void agg_sum_partials(const Lanes& L, G1Group& g, Proj<Fp>& q, const uint32_t* part, int k, int n,
+                             int stride, bool& have) {
+  for (int j = k; j < n; j += stride) {
+    par(L, kAggWords, [&](int w) { (&q.X)[w / NL].v[w % NL] = agg_load(part + (size_t)kAggWords * j + w); });
+    if (fp_is_zero(q.Z)) continue;  // an identity partial
+    if (have) {
+      g1_add_stages(L, g, &q.X, false);
+    } else {
+      g1_set(L, g, &q.X, false);
+      have = true;
+    }
+  }
+}
+
+// One level of the tree: group k < s adds group k + s's sum into its own.
+BLS_FN void agg_tree_step(const Lanes& L, G1Group* grp, int* have, int k, int s) {
+  if (k >= s || !have[k + s]) return;
+  if (have[k])
+    g1_add_stages(L, grp[k], &grp[k + s].acc.X, false);
+  else
+    g1_set(L, grp[k], &grp[k + s].acc.X, false);
+  if (L.lane == 0) have[k] = 1;
+}
+
+// Word w of a block's partial: group 0's sum, or the identity.
+BLS_FN uint32_t agg_partial_word(const G1Group& g, bool have, int w) {
+  if (have) return (&g.acc.X)[w / NL].v[w % NL];
+  return w / NL == 1 ? c_bls.one[w % NL] : 0u;
+}
+
+// The row's sum in affine form: out (2, 48), *inf; one thread.
+BLS_FN void agg_finish(uint8_t* out, uint8_t* inf, const G1Group& g, bool have) {
+  Fp zi, x, y;
+  if (have) {
+    fp_inv_gcd(zi, g.acc.Z);
+    fp_mul(x, g.acc.X, zi);
+    fp_mul(y, g.acc.Y, zi);
+  } else {
+    fp_zero(x);
+    fp_zero(y);
+  }
+  fp_to_bytes(out, x);
+  fp_to_bytes(out + FP_BYTES, y);
+  *inf = !have || fp_is_zero(g.acc.Z) ? 1 : 0;
+}
 
 // oa[i] = oa[i] * ob[i] for i < n: the only Fp products of a stage.
 BLS_NOINLINE void mul_stage(const Lanes& L, Fp* oa, const Fp* ob, int n) {

@@ -42,6 +42,52 @@ void f12_to(uint8_t* out, const Fp2* a) {
 
 }  // namespace
 
+namespace {
+
+// bls12_g1_aggregate's work for one batch row, its blocks and each block's
+// groups in turn, as the kernel's steps run them between barriers.
+template <int G>
+int host_g1_sum(uint8_t* out, const uint8_t* points, const uint8_t* mask, int v, int chunk) {
+  constexpr int K = kAggThreads / G;
+  auto S = std::make_unique<AggBlock<K>>();
+  const Lanes L = host_lanes(G);
+  const int nblk = v > chunk ? (v + chunk - 1) / chunk : 1;
+  std::vector<uint32_t> part((size_t)nblk * kAggWords);
+  bool have[K];
+  auto tree = [&]() {
+    for (int k = 0; k < K; ++k) S->have[k] = have[k];
+    for (int s = K / 2; s > 0; s >>= 1)
+      for (int k = 0; k < K; ++k) agg_tree_step(L, S->grp, S->have, k, s);
+  };
+  for (int blk = 0; blk < nblk; ++blk) {
+    for (int k = 0; k < K; ++k) have[k] = false;
+    const int lo = blk * chunk, hi = lo + chunk < v ? lo + chunk : v;
+    for (int base = lo; base < hi; base += kAggThreads) {
+      int n = 0;
+      for (int i = base; i < hi && i < base + kAggThreads; ++i) {
+        if (!mask[i]) continue;
+        fp_from_bytes(S->pts[n][0], points + (size_t)i * 2 * FP_BYTES);
+        fp_from_bytes(S->pts[n][1], points + (size_t)i * 2 * FP_BYTES + FP_BYTES);
+        ++n;
+      }
+      for (int k = 0; k < K; ++k) agg_sum_points(L, S->grp[k], S->pts, k, n, K, have[k]);
+    }
+    tree();
+    for (int w = 0; w < kAggWords; ++w)
+      part[(size_t)blk * kAggWords + w] = agg_partial_word(S->grp[0], S->have[0], w);
+  }
+  for (int k = 0; k < K; ++k) {
+    have[k] = false;
+    agg_sum_partials(L, S->grp[k], agg_partial_slot(*S, k), part.data(), k, nblk, K, have[k]);
+  }
+  tree();
+  uint8_t inf = 0;
+  agg_finish(out, &inf, S->grp[0], S->have[0]);
+  return inf;
+}
+
+}  // namespace
+
 extern "C" {
 
 int bls_host_set_constants(const void* blob, size_t bytes) {
@@ -54,18 +100,26 @@ void bls_host_count_reset() { fp_mul_count = 0; }
 
 uint64_t bls_host_count() { return fp_mul_count; }
 
-// op 0: r = a b, 1: r = a + b, 2: r = a - b on Montgomery words (12 little-endian u32 each)
-void bls_host_fp_op(int op, const uint32_t* a, const uint32_t* b, uint32_t* r) {
+// op 0: r = a b, 1: r = a + b, 2: r = a - b, 3: r = 1 / a by Fermat
+// (fp_inv), 4: r = 1 / a by the binary GCD (fp_inv_gcd), on Montgomery words
+// (12 little-endian u32 each). Returns the GCD's outer steps for op 4, else 0.
+int bls_host_fp_op(int op, const uint32_t* a, const uint32_t* b, uint32_t* r) {
   Fp x, y, z;
+  int steps = 0;
   memcpy(x.v, a, sizeof(x.v));
   memcpy(y.v, b, sizeof(y.v));
   if (op == 0)
     fp_mul(z, x, y);
   else if (op == 1)
     fp_add(z, x, y);
-  else
+  else if (op == 2)
     fp_sub(z, x, y);
+  else if (op == 3)
+    fp_inv(z, x);
+  else
+    steps = fp_inv_gcd(z, x);
   memcpy(r, z.v, sizeof(z.v));
+  return steps;
 }
 
 // The Fp12 stages on one row's lanes: op 0: a b (f12_mul), 1: a^2
@@ -108,30 +162,30 @@ int bls_host_pairing_row(uint8_t* value, const uint8_t* pk, const uint8_t* hm, c
   return pairing_row(host_lanes(lanes), *R, value, pk, hm, sig, pairs) ? 1 : 0;
 }
 
-// bls12_g1_aggregate's work for one batch row, its 128 threads' strided
-// shares and their tree in turn: points (V, 2, 48), mask (V,) -> out
-// (2, 48); returns the identity flag.
-int bls_host_g1_sum(uint8_t* out, const uint8_t* points, const uint8_t* mask, int v) {
-  constexpr int kThreads = 128;
-  std::vector<Proj<Fp>> part(kThreads);
-  for (int t = 0; t < kThreads; ++t) {
-    g1_identity(part[t]);
-    for (int i = t; i < v; i += kThreads) {
-      if (!mask[i]) continue;
-      Proj<Fp> pt;
-      fp_from_bytes(pt.X, points + (size_t)i * 2 * FP_BYTES);
-      fp_from_bytes(pt.Y, points + (size_t)i * 2 * FP_BYTES + FP_BYTES);
-      fp_one(pt.Z);
-      g1_add(part[t], part[t], pt);
-    }
+// One staged addition on a group of `lanes`: p (3, 48) projective X, Y,
+// Z; q the same, or affine (2, 48) when `mixed` -> out (3, 48) projective.
+void bls_host_g1_add(uint8_t* out, const uint8_t* p, const uint8_t* q, int mixed, int lanes) {
+  auto g = std::make_unique<G1Group>();
+  Fp qq[3];
+  for (int i = 0; i < 3; ++i) {
+    fp_from_bytes((&g->acc.X)[i], p + i * FP_BYTES);
+    if (i < 2 || !mixed) fp_from_bytes(qq[i], q + i * FP_BYTES);
   }
-  for (int s = kThreads / 2; s > 0; s >>= 1)
-    for (int t = 0; t < s; ++t) g1_add(part[t], part[t], part[t + s]);
-  Fp x, y;
-  const bool inf = g1_normalize(x, y, part[0]);
-  fp_to_bytes(out, x);
-  fp_to_bytes(out + FP_BYTES, y);
-  return inf ? 1 : 0;
+  g1_add_stages(host_lanes(lanes), *g, qq, mixed != 0);
+  for (int i = 0; i < 3; ++i) fp_to_bytes(out + i * FP_BYTES, (&g->acc.X)[i]);
+}
+
+// bls12_g1_aggregate's work for one batch row: points (V, 2, 48), mask
+// (V,) -> out (2, 48); returns the identity flag, or -1 for a lane group
+// other than 2, 4, 8 and 16. `chunk`: points a block, `lanes`: G.
+int bls_host_g1_sum(uint8_t* out, const uint8_t* points, const uint8_t* mask, int v, int chunk, int lanes) {
+  switch (lanes) {
+    case 2: return host_g1_sum<2>(out, points, mask, v, chunk);
+    case 4: return host_g1_sum<4>(out, points, mask, v, chunk);
+    case 8: return host_g1_sum<8>(out, points, mask, v, chunk);
+    case 16: return host_g1_sum<16>(out, points, mask, v, chunk);
+  }
+  return -1;
 }
 
 // One map row (bls12_map_to_g2's): returns the identity flag.

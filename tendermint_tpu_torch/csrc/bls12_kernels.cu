@@ -30,8 +30,19 @@
 // products themselves are PTX carry chains (fp381.cuh). The pairing runs
 // one Miller loop for both pairs with sparse line products, cyclotomic
 // squares in the final exponentiation; the map's cofactor clear runs over
-// the NAF of H2. The aggregate keeps one thread's complete additions over
-// a strided share and a tree in shared memory.
+// the NAF of H2.
+//
+// The aggregate (an aggregated commit's one launch: a row, up to 10,000
+// points) spreads a row's points over blocks of kAggChunk, so that 10,000
+// points fill the card: each block sums its chunk on groups of kAggLanes
+// lanes (the complete addition in two stages of six products) and a tree
+// of such additions, writes one partial sum, and the row's last block to
+// finish adds up the partials and normalises through one inversion by a
+// binary GCD (fp381.cuh fp_inv_gcd: some 25-28 batches of 30 divsteps,
+// about 30 us on one thread, where Fermat's chain of about 455 products
+// took 0.67 ms). kAggLanes and kAggChunk take the least time summed over
+// 128, 4,096 and 10,000 points in scripts/bls_aggregate_sweep.py (G = 2,
+// 4, 8; 32 to 256 points a block; PERF.md).
 #include <stdint.h>
 #include <cuda_runtime.h>
 
@@ -41,7 +52,8 @@ namespace tmk {
 
 constexpr int kWarp = 32;
 constexpr int kMaxRowThreads = 128;  // the most lanes a row
-constexpr int kAggThreads = 128;
+constexpr int kAggLanes = 8;         // G of bls12_g1_aggregate
+constexpr int kAggChunk = 64;        // points a block of bls12_g1_aggregate
 constexpr int kFp12Bytes = 12 * bls::FP_BYTES;
 constexpr int kPairingLanes = 64;  // G of bls12_pairing_check
 constexpr int kMapLanes = 64;      // G of bls12_map_to_g2
@@ -101,42 +113,80 @@ __global__ void __launch_bounds__(kMaxRowThreads) bls12_map_to_g2(
   if (L.lane == 0) inf[row] = is_inf ? 1 : 0;
 }
 
-// One block per batch row b: the points (V, 2, 48) where mask (B, V) is
-// set, summed by complete additions, each thread over a strided share,
-// then a tree over shared memory; thread 0 normalises into out (B, 2, 48)
-// and inf (B,). Any V.
-__global__ void __launch_bounds__(kAggThreads) bls12_g1_aggregate(
-    const uint8_t* __restrict__ points, const uint8_t* __restrict__ mask, int v, uint8_t* __restrict__ out,
-    uint8_t* __restrict__ inf) {
-  __shared__ bls::Proj<bls::Fp> part[kAggThreads];
-  const int b = blockIdx.x;
-  bls::Proj<bls::Fp> acc;
-  bls::g1_identity(acc);
-  for (int i = threadIdx.x; i < v; i += kAggThreads) {
-    if (mask[(size_t)b * v + i]) {
-      bls::Proj<bls::Fp> pt;
-      bls::fp_from_bytes(pt.X, points + (size_t)i * 2 * bls::FP_BYTES);
-      bls::fp_from_bytes(pt.Y, points + (size_t)i * 2 * bls::FP_BYTES + bls::FP_BYTES);
-      bls::fp_one(pt.Z);
-      bls::g1_add(acc, acc, pt);
+// Replaces g1_aggregate (ops/bls12.py:771, with g1_padd :735). points
+// (V, 2, 48) affine, mask (B, V) -> out (B, 2, 48) affine sums, inf (B,).
+// nblk blocks a row, each a chunk of CHUNK points (AggBlock in dynamic
+// shared memory, groups of G lanes): the block's sum goes to part (B, nblk,
+// 36 words), and the last block of row b to finish (count[b], zeroed by
+// the launch) adds up the row's partial sums and normalises. Any V (V = 0
+// is one block that selects nothing) and any masks.
+template <int G, int CHUNK>
+__global__ void __launch_bounds__(bls::kAggThreads) bls12_g1_aggregate(
+    const uint8_t* __restrict__ points, const uint8_t* __restrict__ mask, int v, int nblk, uint32_t* part,
+    unsigned* count, uint8_t* __restrict__ out, uint8_t* __restrict__ inf) {
+  static_assert(G == 2 || G == 4 || G == 8 || G == 16, "a group is 2, 4, 8 or 16 lanes of a warp");
+  constexpr int K = bls::kAggThreads / G;
+  extern __shared__ __align__(16) uint8_t smem[];
+  bls::AggBlock<K>& S = *reinterpret_cast<bls::AggBlock<K>*>(smem);
+  const int b = blockIdx.x / nblk, blk = blockIdx.x % nblk;
+  const int tid = threadIdx.x, k = tid / G, wl = tid % kWarp;
+  const bls::Lanes L{tid % G, G, ((1u << G) - 1) << (wl / G * G)};
+  const int lo = blk * CHUNK, hi = min(v, lo + CHUNK);
+  bool have = false;
+  for (int base = lo; base < hi; base += bls::kAggThreads) {
+    // pack the round's selected points, in index order
+    const int i = base + tid;
+    const bool sel = i < hi && mask[(size_t)b * v + i];
+    const unsigned bal = __ballot_sync(0xffffffffu, sel);
+    if (wl == 0) S.wsel[tid / kWarp] = __popc(bal);
+    __syncthreads();
+    int off = __popc(bal & ((1u << wl) - 1)), n = 0;
+    for (int w = 0; w < bls::kAggThreads / kWarp; ++w) {
+      off += w < tid / kWarp ? S.wsel[w] : 0;
+      n += S.wsel[w];
     }
-  }
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kAggThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      bls::g1_add(acc, part[threadIdx.x], part[threadIdx.x + s]);
-      part[threadIdx.x] = acc;
+    if (sel) {
+      bls::fp_from_bytes(S.pts[off][0], points + (size_t)i * 2 * bls::FP_BYTES);
+      bls::fp_from_bytes(S.pts[off][1], points + (size_t)i * 2 * bls::FP_BYTES + bls::FP_BYTES);
     }
     __syncthreads();
+    bls::agg_sum_points(L, S.grp[k], S.pts, k, n, K, have);
+    __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    bls::Fp ax, ay;
-    const bool is_inf = bls::g1_normalize(ax, ay, part[0]);
-    bls::fp_to_bytes(out + (size_t)b * 2 * bls::FP_BYTES, ax);
-    bls::fp_to_bytes(out + (size_t)b * 2 * bls::FP_BYTES + bls::FP_BYTES, ay);
-    inf[b] = is_inf ? 1 : 0;
+  if (L.lane == 0) S.have[k] = have;
+  __syncthreads();
+  for (int s = K / 2; s > 0; s >>= 1) {
+    bls::agg_tree_step(L, S.grp, S.have, k, s);
+    __syncthreads();
   }
+  if (tid < bls::kAggWords)
+    part[((size_t)b * nblk + blk) * bls::kAggWords + tid] = bls::agg_partial_word(S.grp[0], S.have[0], tid);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) S.last = atomicAdd(&count[b], 1u) == (unsigned)(nblk - 1);
+  __syncthreads();
+  if (!S.last) return;  // the block's own value: uniform
+  // the last block: the row's partial sums
+  have = false;
+  bls::agg_sum_partials(L, S.grp[k], bls::agg_partial_slot(S, k), part + (size_t)b * nblk * bls::kAggWords, k, nblk,
+                        K, have);
+  if (L.lane == 0) S.have[k] = have;
+  __syncthreads();
+  for (int s = K / 2; s > 0; s >>= 1) {
+    bls::agg_tree_step(L, S.grp, S.have, k, s);
+    __syncthreads();
+  }
+  if (tid == 0) bls::agg_finish(out + (size_t)b * 2 * bls::FP_BYTES, inf + b, S.grp[0], S.have[0]);
+}
+
+// Blocks a row of the aggregate: one a chunk, at least one.
+static int agg_blocks(int v, int chunk) { return v > chunk ? (v + chunk - 1) / chunk : 1; }
+
+// The aggregate's dynamic shared memory (above 48 KB for G = 2).
+template <int G, int CHUNK>
+static cudaError_t allow_agg_smem() {
+  return cudaFuncSetAttribute(bls12_g1_aggregate<G, CHUNK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(bls::AggBlock<bls::kAggThreads / G>));
 }
 
 // The dynamic shared memory of a row kernel of G lanes, its rows' state
@@ -161,12 +211,15 @@ cudaError_t set_bls_constants(const void* host, size_t bytes) {
   cudaError_t e = cudaMemcpyToSymbol(bls::c_bls, host, bytes);
   if (e == cudaSuccess) e = allow_row_smem<bls::PairRow, kPairingLanes>(bls12_pairing_check<kPairingLanes>);
   if (e == cudaSuccess) e = allow_row_smem<bls::MapRow, kMapLanes>(bls12_map_to_g2<kMapLanes>);
+  if (e == cudaSuccess) e = allow_agg_smem<kAggLanes, kAggChunk>();
   return e;
 }
 
-void bls12_lanes(int* pairing, int* map) {
+void bls12_lanes(int* pairing, int* map, int* aggregate, int* chunk) {
   *pairing = kPairingLanes;
   *map = kMapLanes;
+  *aggregate = kAggLanes;
+  *chunk = kAggChunk;
 }
 
 cudaError_t launch_bls12_pairing_check(const uint8_t* pk, const uint8_t* hm, const uint8_t* sig, int n, int pairs,
@@ -180,10 +233,28 @@ cudaError_t launch_bls12_map_to_g2(const uint8_t* u0, const uint8_t* u1, int n, 
   return launch_rows<bls::MapRow, kMapLanes>(bls12_map_to_g2<kMapLanes>, n, stream, u0, u1, n, q, inf);
 }
 
-cudaError_t launch_bls12_g1_aggregate(const uint8_t* points, const uint8_t* mask, int b, int v, uint8_t* out,
-                                      uint8_t* inf, cudaStream_t stream) {
-  bls12_g1_aggregate<<<b, kAggThreads, 0, stream>>>(points, mask, v, out, inf);
+// The aggregate's scratch: the partial sums (B, nblk, 36) and a counter a
+// row, allocated by the caller for each call.
+size_t bls12_g1_aggregate_scratch(int b, int v) {
+  return (size_t)b * agg_blocks(v, kAggChunk) * bls::kAggWords * 4 + (size_t)b * 4;
+}
+
+template <int G, int CHUNK>
+static cudaError_t launch_agg(const uint8_t* points, const uint8_t* mask, int b, int v, uint8_t* scratch,
+                             uint8_t* out, uint8_t* inf, cudaStream_t stream) {
+  const int nblk = agg_blocks(v, CHUNK);
+  uint32_t* part = reinterpret_cast<uint32_t*>(scratch);
+  unsigned* count = reinterpret_cast<unsigned*>(part + (size_t)b * nblk * bls::kAggWords);
+  cudaError_t e = cudaMemsetAsync(count, 0, (size_t)b * sizeof(unsigned), stream);
+  if (e != cudaSuccess) return e;
+  bls12_g1_aggregate<G, CHUNK><<<b * nblk, bls::kAggThreads, sizeof(bls::AggBlock<bls::kAggThreads / G>), stream>>>(
+      points, mask, v, nblk, part, count, out, inf);
   return cudaGetLastError();
+}
+
+cudaError_t launch_bls12_g1_aggregate(const uint8_t* points, const uint8_t* mask, int b, int v, uint8_t* scratch,
+                                      uint8_t* out, uint8_t* inf, cudaStream_t stream) {
+  return launch_agg<kAggLanes, kAggChunk>(points, mask, b, v, scratch, out, inf, stream);
 }
 
 }  // namespace tmk

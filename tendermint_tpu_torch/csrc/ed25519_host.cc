@@ -11,12 +11,14 @@
 #include <string.h>
 
 #include <memory>
+#include <vector>
 
 #include "ge25519_lanes.cuh"
 
 namespace {
 
 TmConstants host_k;
+std::vector<int32_t> host_comb;  // the tabled scan's base comb (32, 128, 3, 10)
 
 Lanes host_lanes(int g) { return Lanes{0, g, 0}; }
 
@@ -82,6 +84,22 @@ void ed_host_scan_row(int32_t* out, const int8_t* sd, const int8_t* kd, const in
   memcpy(base, host_k.base, sizeof(base));
   load_d2(d2);
   scan_row(host_lanes(lanes), *R, sd, kd, neg_a, out, base, d2);
+}
+
+// The tabled scan's base comb, (32, 128, 3, 10) int32 (_build.comb_blob).
+int ed_host_set_comb(const void* blob, size_t bytes) {
+  if (bytes != sizeof(int32_t) * kCombPositions * kCombEntries * 30) return -1;
+  host_comb.resize(bytes / sizeof(int32_t));
+  memcpy(host_comb.data(), blob, bytes);
+  return 0;
+}
+
+// One ed25519_scan_tabled row: sd8 (32,), kd (64,) int8, tab the row's
+// validator's tables (16, 8, 3, 10), or null for an index out of range ->
+// out (4, 10).
+void ed_host_scan_tabled_row(int32_t* out, const int8_t* sd8, const int8_t* kd, const int32_t* tab, int lanes) {
+  auto R = std::make_unique<TabRow>();
+  scan_tabled_row(host_lanes(lanes), *R, sd8, kd, tab, host_comb.data(), out);
 }
 
 // One ed25519_build_tables validator on 2, 4, 8 or 16 lanes: pk (32,) ->

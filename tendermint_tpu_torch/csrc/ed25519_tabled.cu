@@ -1,5 +1,6 @@
 // The per-valset tabled path of batched ed25519 verification: G lanes a
-// validator (the build), one thread a signature row (prepare, scan).
+// validator (the build) or a signature row (the scan), one thread a row
+// (prepare).
 //
 //   ed25519_build_tables    replaces ops/ed25519.py build_valset_tables
 //                           (curve.decompress, curve.build_split_tables,
@@ -48,15 +49,21 @@
 // compiled in (kBuildLanes, the fastest of 2, 4, 8 and 16 at 10,000
 // validators: scripts/ed25519_lane_sweep.py).
 //
-// prepare and the scan: one thread a row, the simple form of
-// ed25519_kernels.cu. The scan's table read is uncoalesced -- each thread
-// reads its own validator's 120-B entries, 15 KB away from its neighbours'
-// -- and is the first thing for a later version to redesign. An index only
-// changes which table a thread reads: no gathered copy of a table is
-// ever made, so the JAX package's dense, gathered and sharded scan
+// prepare: one thread a row, the simple form of ed25519_kernels.cu. The
+// scan: a row on G = 4 lanes of a warp (kScanTabledLanes, the fastest of
+// 2, 4 and 8 at 4,737 and 9,510 rows: scripts/ed25519_lane_sweep.py), as
+// ed25519_scan does (ed25519_kernels.cu): each doubling and mixed addition is
+// two stages of four independent products, so a row's 112 group
+// operations are 224 product latencies deep instead of some 800, and 9,510
+// rows keep about nine warps on each SM. The row's accumulator, a stage's
+// products and its digits (424 B) sit in shared memory; the tables stay
+// where the build wrote them: each lane loads the one field (40 B) of the
+// entry its product needs, so a row's lanes read the 120-B entry together.
+// An index only changes which table a row reads: no gathered copy of a
+// table is ever made, so the JAX package's dense, gathered and sharded scan
 // variants (which exist to keep XLA's gathers bounded) are one kernel.
 // The base comb (32 x 128 entries, 491,520 B) is too large for
-// __constant__ memory and each thread selects a different entry, which
+// __constant__ memory and each row selects a different entry, which
 // would serialise the constant cache: it lives in a __device__ array
 // (L2-resident), uploaded once per device from the pure-Python oracle.
 #include <stdint.h>
@@ -72,17 +79,14 @@ namespace tmk {
 
 __constant__ TmConstants c_tab;  // this translation unit's copy of the constants
 
-constexpr int kSplits = kBuildSplits;
-constexpr int kSplitW = 4;
 constexpr int kEntries = kBuildEntries;
 constexpr int kTableInts = kBuildTableInts;
-constexpr int kCombPos = 32;
-constexpr int kCombEntries = 128;
-
-__device__ int32_t c_comb[kCombPos][kCombEntries][3][10];
+__device__ int32_t c_comb[kCombPositions][kCombEntries][3][10];
 
 constexpr int kTabBlock = 64;
-constexpr int kBuildLanes = 4;  // G of ed25519_build_tables
+constexpr int kScanTabledBlock = 32;  // threads a block of ed25519_scan_tabled: one warp
+constexpr int kBuildLanes = 4;        // G of ed25519_build_tables
+constexpr int kScanTabledLanes = 4;   // G of ed25519_scan_tabled
 
 // Validators of G lanes a block: 32 in up to 128 threads (fewer for G
 // above 4).
@@ -215,63 +219,29 @@ __global__ void __launch_bounds__(kTabBlock) ed25519_prepare_tabled(
 // Replaces verify_stage_scan_tabled (ops/ed25519.py:195), _sharded (:204)
 // and _dense (:225): curve.double_scalar_mul_tabled (ops/curve.py:551)
 // with madd (:225), _select_affine (:471) and _select_comb256 (:359).
-// Four windows, most significant first, of four doublings (T only on
-// the last) and sixteen mixed additions from the row's key table (digit
-// 4m + w selects split m), then 32 mixed additions from the base comb,
-// the last without T (the point's reader, encode, never reads it).
 // Bound: about 790 field multiplications a row; 7.8 KB of tables read.
 // sd8 (N,32) i8, kd (N,64) i8, tables (V,16,8,3,10) i32, a_tab (V,) u8,
 // idx (N,) i32 or null -> [s]B + [k](-A) as (N,4,10) i32 (T zero),
-// a_ok (N,) u8 = a_tab[idx]. A row whose idx is out of range reads
-// nothing and is rejected (a_ok 0).
-__global__ void __launch_bounds__(kTabBlock) ed25519_scan_tabled(
+// a_ok (N,) u8 = a_tab[idx]. Rows of G lanes (scan_tabled_row,
+// ge25519_lanes.cuh), each with its TabRow in dynamic shared memory; a
+// row whose idx is out of range reads nothing and writes zeros and a_ok 0
+// from all its lanes.
+template <int G>
+__global__ void __launch_bounds__(kScanTabledBlock) ed25519_scan_tabled(
     const int8_t* __restrict__ sd8, const int8_t* __restrict__ kd, const int32_t* __restrict__ tables,
     const uint8_t* __restrict__ a_tab, const int32_t* __restrict__ idx, int v, int n,
     int32_t* __restrict__ out, uint8_t* __restrict__ a_ok) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  static_assert(G == 2 || G == 4 || G == 8, "a row is 2, 4 or 8 lanes of a warp");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int group = (int)threadIdx.x / G;
+  const int row = blockIdx.x * (kScanTabledBlock / G) + group;
   if (row >= n) return;
+  const Lanes L{(int)threadIdx.x % G, G, ((1u << G) - 1) << (group * G)};
   const int vi = idx != nullptr ? idx[row] : row;
-  int32_t* dst = out + 40 * (size_t)row;
-  if (vi < 0 || vi >= v) {
-    a_ok[row] = 0;
-    for (int i = 0; i < 40; i++) dst[i] = 0;
-    return;
-  }
-  const int32_t* tab = tables + (size_t)vi * kTableInts;
-  const int8_t* k = kd + 64 * (size_t)row;
-  const int8_t* s = sd8 + 32 * (size_t)row;
-
-  ge_p3 acc;
-  ge_identity(acc);
-  ge_precomp c;
-#pragma unroll 1
-  for (int w = kSplitW - 1; w >= 0; w--) {
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, false);
-    ge_double(acc, acc, true);
-#pragma unroll 1
-    for (int m = 0; m < kSplits; m++) {
-      const int dig = k[kSplitW * m + w];
-      const int mag = dig < 0 ? -dig : dig;
-      if (mag != 0) load_precomp(c, tab + (m * kEntries + mag - 1) * 30);
-      ge_precomp_fix(c, dig);
-      ge_madd(acc, acc, c, true);
-    }
-  }
-#pragma unroll 1
-  for (int p = 0; p < kCombPos; p++) {
-    const int dig = s[p];
-    const int mag = dig < 0 ? -dig : dig;
-    if (mag != 0) load_precomp(c, &c_comb[p][mag - 1][0][0]);
-    ge_precomp_fix(c, dig);
-    ge_madd(acc, acc, c, p < kCombPos - 1);
-  }
-  store_fe(dst, acc.X);
-  store_fe(dst + 10, acc.Y);
-  store_fe(dst + 20, acc.Z);
-  store_fe(dst + 30, acc.T);
-  a_ok[row] = a_tab[vi];
+  const bool in = vi >= 0 && vi < v;
+  scan_tabled_row(L, reinterpret_cast<TabRow*>(smem)[group], sd8 + 32 * (size_t)row, kd + 64 * (size_t)row,
+                  in ? tables + (size_t)vi * kTableInts : nullptr, &c_comb[0][0][0][0], out + 40 * (size_t)row);
+  if (L.lane == 0) a_ok[row] = in ? a_tab[vi] : 0;
 }
 
 static inline int grid_tab(int n) { return (n + kTabBlock - 1) / kTabBlock; }
@@ -319,11 +289,21 @@ cudaError_t launch_prepare_tabled(const uint8_t* pk_all, const int32_t* idx, int
   return cudaGetLastError();
 }
 
+template <int G>
+cudaError_t launch_scan_tabled_at(const int8_t* sd8, const int8_t* kd, const int32_t* tables, const uint8_t* a_tab,
+                                  const int32_t* idx, int v, int n, int32_t* out, uint8_t* a_ok, cudaStream_t stream) {
+  constexpr int rows = kScanTabledBlock / G;
+  ed25519_scan_tabled<G><<<(n + rows - 1) / rows, kScanTabledBlock, rows * sizeof(TabRow), stream>>>(
+      sd8, kd, tables, a_tab, idx, v, n, out, a_ok);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_scan_tabled(const int8_t* sd8, const int8_t* kd, const int32_t* tables, const uint8_t* a_tab,
                                const int32_t* idx, int v, int n, int32_t* out, uint8_t* a_ok,
                                cudaStream_t stream) {
-  ed25519_scan_tabled<<<grid_tab(n), kTabBlock, 0, stream>>>(sd8, kd, tables, a_tab, idx, v, n, out, a_ok);
-  return cudaGetLastError();
+  return launch_scan_tabled_at<kScanTabledLanes>(sd8, kd, tables, a_tab, idx, v, n, out, a_ok, stream);
 }
+
+int scan_tabled_lanes() { return kScanTabledLanes; }
 
 }  // namespace tmk

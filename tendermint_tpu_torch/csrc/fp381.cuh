@@ -342,6 +342,206 @@ BLS_FN void fp_inv(Fp& r, const Fp& a) { fp_pow(r, a, c_bls.e_inv, 32 * NL); }
 // a^((p+1)/4): the square root of a when a is a square (p = 3 mod 4).
 BLS_FN void fp_sqrt_cand(Fp& r, const Fp& a) { fp_pow(r, a, c_bls.e_sqrt, 32 * NL); }
 
+// -- inversion by a binary GCD (the G1 aggregate's normalisation) ----------------
+//
+// Bernstein and Yang's safegcd (IACR ePrint 2019/266) in its variable-time
+// form (as libsecp256k1's modinv32_var): batches of 30 divsteps, each
+// batch computed on the low 32 bits of f and g alone (a divstep reads only
+// g's parity and the sign of eta), the even steps in bulk by counting
+// trailing zeros and up to eight low bits of g cancelled at once by a
+// multiple of f, collected in a 2x2 matrix of factors below 2^30; the
+// matrix then updates the full f, g (13 signed limbs of 30 bits: the
+// division by 2^30 is a shift by one limb) and the cofactors d, e mod p
+// (the multiple of p that clears the low limb added first). The loop runs
+// until g = 0, some 25-30 batches for a 381-bit p; f is then +-1 and d
+// +-1 / y. Every index is a constant after unrolling, so the values stay
+// in registers. Variable time: the value is public where this is used
+// (the aggregate of validators' keys).
+//
+// Montgomery form in and out: started from e = R^2 instead of 1, the
+// invariants d y = R^2 f, e y = R^2 g (mod p) end with d = +-R^2 / y, the
+// Montgomery form of the inverse of y's value (y = aR gives R / a). 0 maps
+// to 0: g = 0 ends the loop at once with d = 0.
+
+constexpr int GL = 13;  // 30-bit limbs of the GCD's values (390 bits)
+constexpr int32_t M30 = (int32_t)((1u << 30) - 1);
+
+// Trailing zeros of x != 0.
+BLS_FN int ctz32(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __ffs((int)x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+// 12 x 32-bit limbs -> 13 x 30-bit limbs (a value below 2^384).
+BLS_FN void to_limbs30(int32_t* r, const uint32_t* a) {
+  BLS_UNROLL
+  for (int i = 0; i < GL; ++i) {
+    const int w = 30 * i / 32, off = 30 * i % 32;
+    uint64_t x = a[w] >> off;
+    if (w + 1 < NL) x |= (uint64_t)a[w + 1] << (32 - off);
+    r[i] = (int32_t)(x & M30);
+  }
+}
+
+// 13 x 30-bit limbs of a value in [0, 2^384) -> 12 x 32-bit limbs.
+BLS_FN void from_limbs30(uint32_t* r, const int32_t* a) {
+  BLS_UNROLL
+  for (int j = 0; j < NL; ++j) {
+    const int i = 32 * j / 30, off = 32 * j % 30;
+    uint64_t x = (uint64_t)(uint32_t)a[i] >> off;
+    if (i + 1 < GL) x |= (uint64_t)(uint32_t)a[i + 1] << (30 - off);
+    if (i + 2 < GL) x |= (uint64_t)(uint32_t)a[i + 2] << (60 - off);
+    r[j] = (uint32_t)x;
+  }
+}
+
+// 30 divsteps from eta and the low bits of f (odd) and g: the matrix
+// t = (u, v, q, r), [f', g'] = t [f, g] / 2^30; returns the new eta
+// (= -delta).
+BLS_FN int32_t divsteps30(int32_t eta, uint32_t f, uint32_t g, int32_t* t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+  int i = 30;
+  for (;;) {
+    // the even steps at once (a sentinel bit stops the count at i)
+    const int zeros = ctz32(g | (0xffffffffu << i));
+    g >>= zeros;
+    u <<= zeros;
+    v <<= zeros;
+    eta -= zeros;
+    i -= zeros;
+    if (i == 0) break;
+    // g odd: with eta < 0, (eta, f, g) <- (-eta, g, -f)
+    if (eta < 0) {
+      uint32_t tmp = f;
+      eta = -eta;
+      f = g;
+      g = 0u - tmp;
+      tmp = u;
+      u = q;
+      q = 0u - tmp;
+      tmp = v;
+      v = r;
+      r = 0u - tmp;
+    }
+    // cancel up to min(eta + 1, i, 8) low bits of g by w f, w = -g / f
+    const int limit = eta + 1 > i ? i : eta + 1;
+    const uint32_t m = (0xffffffffu >> (32 - limit)) & 255u;
+    uint32_t fi = f * (2u - f * f);  // 1 / f mod 2^6, then mod 2^12
+    fi *= 2u - f * fi;
+    const uint32_t w = (g * (0u - fi)) & m;
+    g += f * w;
+    q += u * w;
+    r += v * w;
+  }
+  t[0] = (int32_t)u;
+  t[1] = (int32_t)v;
+  t[2] = (int32_t)q;
+  t[3] = (int32_t)r;
+  return eta;
+}
+
+// [f, g] <- t [f, g] / 2^30 (exact): limbs 0..11 in [0, 2^30), 12 signed.
+BLS_FN void gcd_update_fg(int32_t* f, int32_t* g, const int32_t* t) {
+  int64_t cf = ((int64_t)t[0] * f[0] + (int64_t)t[1] * g[0]) >> 30;
+  int64_t cg = ((int64_t)t[2] * f[0] + (int64_t)t[3] * g[0]) >> 30;
+  BLS_UNROLL
+  for (int i = 1; i < GL; ++i) {
+    const int32_t fi = f[i], gi = g[i];
+    cf += (int64_t)t[0] * fi + (int64_t)t[1] * gi;
+    cg += (int64_t)t[2] * fi + (int64_t)t[3] * gi;
+    f[i - 1] = (int32_t)cf & M30;
+    cf >>= 30;
+    g[i - 1] = (int32_t)cg & M30;
+    cg >>= 30;
+  }
+  f[GL - 1] = (int32_t)cf;
+  g[GL - 1] = (int32_t)cg;
+}
+
+// [d, e] <- (t [d, e] + p [md, me]) / 2^30 for d, e in (-2p, p), md and me
+// chosen to clear the low 30 bits; the results stay in (-2p, p).
+BLS_FN void gcd_update_de(int32_t* d, int32_t* e, const int32_t* t, const int32_t* p, uint32_t pinv30) {
+  const int32_t sd = d[GL - 1] >> 31, se = e[GL - 1] >> 31;
+  int32_t md = (t[0] & sd) + (t[1] & se);
+  int32_t me = (t[2] & sd) + (t[3] & se);
+  int64_t cd = (int64_t)t[0] * d[0] + (int64_t)t[1] * e[0];
+  int64_t ce = (int64_t)t[2] * d[0] + (int64_t)t[3] * e[0];
+  md -= (int32_t)((pinv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)M30);
+  me -= (int32_t)((pinv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)M30);
+  cd = (cd + (int64_t)p[0] * md) >> 30;
+  ce = (ce + (int64_t)p[0] * me) >> 30;
+  BLS_UNROLL
+  for (int i = 1; i < GL; ++i) {
+    const int32_t di = d[i], ei = e[i];
+    cd += (int64_t)t[0] * di + (int64_t)t[1] * ei + (int64_t)p[i] * md;
+    ce += (int64_t)t[2] * di + (int64_t)t[3] * ei + (int64_t)p[i] * me;
+    d[i - 1] = (int32_t)cd & M30;
+    cd >>= 30;
+    e[i - 1] = (int32_t)ce & M30;
+    ce >>= 30;
+  }
+  d[GL - 1] = (int32_t)cd;
+  e[GL - 1] = (int32_t)ce;
+}
+
+// d in (-2p, p), negated when sign < 0, into [0, p).
+BLS_FN void gcd_normalize(int32_t* d, int32_t sign, const int32_t* p) {
+  int32_t c = d[GL - 1] >> 31;
+  BLS_UNROLL
+  for (int i = 0; i < GL; ++i) d[i] += p[i] & c;
+  c = sign >> 31;
+  BLS_UNROLL
+  for (int i = 0; i < GL; ++i) d[i] = (d[i] ^ c) - c;
+  BLS_UNROLL
+  for (int i = 0; i < GL - 1; ++i) {
+    d[i + 1] += d[i] >> 30;
+    d[i] &= M30;
+  }
+  c = d[GL - 1] >> 31;
+  BLS_UNROLL
+  for (int i = 0; i < GL; ++i) d[i] += p[i] & c;
+  BLS_UNROLL
+  for (int i = 0; i < GL - 1; ++i) {
+    d[i + 1] += d[i] >> 30;
+    d[i] &= M30;
+  }
+}
+
+// r = 1 / a in Montgomery form; 0 -> 0. Returns the batches run.
+BLS_NOINLINE int fp_inv_gcd(Fp& r, const Fp& a) {
+  int32_t d[GL], e[GL], f[GL], g[GL], p[GL], t[4];
+  to_limbs30(p, c_bls.p);
+  to_limbs30(g, a.v);
+  to_limbs30(e, c_bls.r2);
+  BLS_UNROLL
+  for (int i = 0; i < GL; ++i) {
+    f[i] = p[i];
+    d[i] = 0;
+  }
+  // p^-1 mod 2^30 by Newton's iteration (p odd: p is its own inverse mod 8)
+  uint32_t pinv = c_bls.p[0];
+  for (int i = 0; i < 4; ++i) pinv *= 2u - c_bls.p[0] * pinv;
+  int32_t eta = -1;
+  int steps = 0;
+  for (;;) {
+    int32_t any = 0;
+    BLS_UNROLL
+    for (int i = 0; i < GL; ++i) any |= g[i];
+    if (any == 0) break;
+    ++steps;
+    eta = divsteps30(eta, (uint32_t)f[0], (uint32_t)g[0], t);
+    gcd_update_de(d, e, t, p, pinv);
+    gcd_update_fg(f, g, t);
+  }
+  // f = +-1 unless a = 0 (then f = p and d = 0)
+  gcd_normalize(d, f[GL - 1], p);
+  from_limbs30(r.v, d);
+  return steps;
+}
+
 // Canonical value (out of Montgomery form) as 48 big-endian bytes.
 BLS_FN void fp_to_bytes(uint8_t* out, const Fp& a) {
   Fp one_plain, v;

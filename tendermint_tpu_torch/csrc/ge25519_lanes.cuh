@@ -1,12 +1,12 @@
-// ed25519 group operations on a row's lanes: the work of ed25519_scan (a
-// signature row) and ed25519_build_tables (a validator), G lanes of one
-// warp a row.
+// ed25519 group operations on a row's lanes: the work of ed25519_scan and
+// ed25519_scan_tabled (a signature row) and ed25519_build_tables (a
+// validator), G lanes of one warp a row.
 //
 // The one-thread formulas of ge25519.cuh are cut into stages of
 // independent field products. A doubling is 4 squarings (X^2, Y^2, Z^2,
 // (X + Y)^2), then 3 or 4 products (X, Y, Z and, when asked for, T); a
 // cached addition is 4 products (the a, b, c, d of ge_add_cached), then 3
-// or 4. Each stage's operands are read from the row's shared slots (the
+// or 4; a mixed addition (ge_madd) 3 and a copy, then 3 or 4. Each stage's operands are read from the row's shared slots (the
 // point `p`, the stage results `s`), each lane forms its item's operands
 // (a sum of at most four slots with small coefficients, one floor-carry
 // pass) and runs one product, and the results go back to shared slots.
@@ -169,9 +169,9 @@ TM_FN void copy_words(const Lanes& L, W* dst, const W* src, int n) {
 struct ScanRow {
   fe p[4];        // the accumulator X, Y, Z, T
   fe s[4];        // a stage's products
-  fe tbl[8][4];   // [1..8](-A), cached
-  int8_t sd[64];  // the signed digits of s
-  int8_t kd[64];  // and of k
+  fe tbl[8][4];    // [1..8](-A), cached
+  int32_t sd[16];  // the signed digits of s, as words
+  int32_t kd[16];  // and of k
   int32_t pad[2];
 };
 
@@ -181,8 +181,13 @@ struct ScanRow {
 TM_FN void scan_row(const Lanes& L, ScanRow& R, const int8_t* sd, const int8_t* kd, const int32_t* neg_a,
                     int32_t* out, const fe (*base)[4], const fe& d2) {
   copy_words(L, &R.p[0].v[0], neg_a, 40);
-  copy_words(L, reinterpret_cast<int32_t*>(R.sd), reinterpret_cast<const int32_t*>(sd), 16);
-  copy_words(L, reinterpret_cast<int32_t*>(R.kd), reinterpret_cast<const int32_t*>(kd), 16);
+  copy_words(L, R.sd, reinterpret_cast<const int32_t*>(sd), 16);
+  copy_words(L, R.kd, reinterpret_cast<const int32_t*>(kd), 16);
+  // the digits are read as bytes of the words they were copied as (a
+  // char type may read any object; an int8_t array written as words may
+  // not be read back as bytes)
+  const int8_t* sd_b = reinterpret_cast<const int8_t*>(R.sd);
+  const int8_t* kd_b = reinterpret_cast<const int8_t*>(R.kd);
   // [1..8]q: entry 1 is q, each next one (previous + q) by the unified
   // addition (here with q's cached form, the same values)
   cached_stage(L, R.tbl[0], R.p, d2);
@@ -198,10 +203,10 @@ TM_FN void scan_row(const Lanes& L, ScanRow& R, const int8_t* sd, const int8_t* 
     dbl_stages(L, R.p, R.s, false);
     dbl_stages(L, R.p, R.s, false);
     dbl_stages(L, R.p, R.s, true);
-    const int sdig = R.sd[w];
+    const int sdig = sd_b[w];
     const int smag = sdig < 0 ? -sdig : sdig;
     add_stages(L, R.p, R.s, base[smag > 0 ? smag - 1 : 0], sdig, true);
-    const int kdig = R.kd[w];
+    const int kdig = kd_b[w];
     const int kmag = kdig < 0 ? -kdig : kdig;
     add_stages(L, R.p, R.s, R.tbl[kmag > 0 ? kmag - 1 : 0], kdig, false);
   }
@@ -366,4 +371,114 @@ TM_FN void build_row(const Lanes& L, BuildRow<G>& R, const uint8_t* pk, const Tm
   build_entries(L, R, ent, d2);
   build_invert(R);
   build_finish(L, R, ent, d2);
+}
+
+// -- ed25519_scan_tabled: a tabled row on G lanes ----------------------------------
+
+// p <- p + q for q affine-cached (y+x, y-x, 2dxy: 30 int32 at q, a table
+// entry in device memory), as ge_madd, read through the row's signed
+// digit as ge_precomp_fix reads it: 0 is the identity (1, 1, 0), a
+// negative digit swaps y+x with y-x and negates 2dxy. a = (Y - X)(y-x),
+// b = (Y + X)(y+x), c = T 2dxy; d = 2Z needs no product: s[3] holds Z and
+// the second stage's sums take it twice (f = 2Z - c, g = 2Z + c). Each
+// lane loads the one field its product needs, so the row's lanes read
+// the entry's 120 B together. s is scratch.
+TM_FN void madd_stages(const Lanes& L, fe* p, fe* s, const int32_t* q, int digit, bool want_t) {
+  par(L, 4, [&](int i) {
+    if (i == 3) {
+      s[3] = p[2];
+      return;
+    }
+    const bool neg = digit < 0;
+    const int src = i == 2 ? 3 : 1;  // T, or Y
+    const int sx = i == 0 ? -1 : (i == 1 ? 1 : 0);
+    const int field = i == 0 ? (neg ? 0 : 1) : (i == 1 ? (neg ? 1 : 0) : 2);
+    const int sign = neg && i == 2 ? -1 : 1;
+    fe a, b;
+#pragma unroll
+    for (int k = 0; k < 10; k++) a.v[k] = p[src].v[k] + sx * p[0].v[k];
+    fe_carry(a);
+    if (digit != 0) {
+#pragma unroll
+      for (int k = 0; k < 10; k++) b.v[k] = sign * q[10 * field + k];
+    } else {
+      fe_set_small(b, i == 2 ? 0 : 1);
+    }
+    fe r;
+    fe_mul(r, a, b);
+    s[i] = r;
+  });
+  // e = b - a, f = 2Z - c, g = 2Z + c, h = b + a
+  efgh_stage(L, p, s, want_t, [](int kind, int* c) {
+    const bool bd = kind == 0 || kind == 3;  // e, h: from a and b
+    c[0] = bd ? (kind == 0 ? -1 : 1) : 0;
+    c[1] = bd ? 1 : 0;
+    c[2] = bd ? 0 : (kind == 1 ? -1 : 1);
+    c[3] = bd ? 0 : 2;
+  });
+}
+
+constexpr int kTabWindows = 4;  // windows of the key's digits (SPLIT_W)
+constexpr int kCombPositions = 32;
+constexpr int kCombEntries = 128;
+
+// A tabled row's shared state: no copy of the key's tables (they are
+// read where ed25519_build_tables wrote them). The stride (424 B) is an
+// odd number of 8-byte words, so the rows of a warp fall on different
+// banks.
+struct TabRow {
+  fe p[4];        // the accumulator X, Y, Z, T
+  fe s[4];        // a stage's products
+  int32_t sd[8];  // the signed base-256 digits of s, as words
+  int32_t kd[16]; // the signed nibbles of k, as words
+  int32_t pad[2];
+};
+
+constexpr int kTabAdds = kTabWindows * kBuildSplits + kCombPositions;  // 96 mixed additions a row
+
+// curve.double_scalar_mul_tabled on one row: sd8 (32,), kd (64,) int8,
+// tab the row's validator's tables (16, 8, 3, 10) int32, comb the base
+// comb (32, 128, 3, 10) -> out (4, 10) int32 with T zero. Four windows,
+// most significant first, of four doublings (T on the last) and sixteen
+// mixed additions from the key's tables (digit 4m + w selects split m),
+// then 32 from the comb, the last without T. tab null (the row's index out of range): the row writes zeros, every
+// lane alike.
+TM_FN void scan_tabled_row(const Lanes& L, TabRow& R, const int8_t* sd8, const int8_t* kd, const int32_t* tab,
+                           const int32_t* comb, int32_t* out) {
+  if (tab == nullptr) {
+    par(L, 40, [&](int k) { out[k] = 0; });
+    return;
+  }
+  copy_words(L, R.sd, reinterpret_cast<const int32_t*>(sd8), 8);
+  copy_words(L, R.kd, reinterpret_cast<const int32_t*>(kd), 16);
+  par(L, 4, [&](int i) { fe_set_small(R.p[i], i == 1 || i == 2 ? 1 : 0); });
+  const int8_t* sd_b = reinterpret_cast<const int8_t*>(R.sd);  // as in scan_row
+  const int8_t* kd_b = reinterpret_cast<const int8_t*>(R.kd);
+  // addition j's digit, and its entry (null for digit 0)
+  auto digit = [&](int j) {
+    return j < kTabWindows * kBuildSplits ? (int)kd_b[kTabWindows * (j % kBuildSplits) + kTabWindows - 1 -
+                                                      j / kBuildSplits]
+                                          : (int)sd_b[j - kTabWindows * kBuildSplits];
+  };
+  auto entry = [&](int j) -> const int32_t* {
+    const int dig = digit(j);
+    const int mag = dig < 0 ? -dig : dig;
+    if (mag == 0) return nullptr;
+    if (j < kTabWindows * kBuildSplits) return tab + ((j % kBuildSplits) * kBuildEntries + mag - 1) * 30;
+    return comb + ((j - kTabWindows * kBuildSplits) * kCombEntries + mag - 1) * 30;
+  };
+  auto madd = [&](int j) { madd_stages(L, R.p, R.s, entry(j), digit(j), j < kTabAdds - 1); };
+  int j = 0;
+#pragma unroll 1
+  for (int w = 0; w < kTabWindows; w++) {
+    dbl_stages(L, R.p, R.s, false);
+    dbl_stages(L, R.p, R.s, false);
+    dbl_stages(L, R.p, R.s, false);
+    dbl_stages(L, R.p, R.s, true);
+#pragma unroll 1
+    for (int m = 0; m < kBuildSplits; m++) madd(j++);
+  }
+#pragma unroll 1
+  for (; j < kTabAdds; j++) madd(j);
+  copy_words(L, out, &R.p[0].v[0], 40);
 }

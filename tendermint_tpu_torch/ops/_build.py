@@ -117,18 +117,20 @@ def _declare(lib) -> None:
     lib.tm_ed25519_finish.argtypes = [vp, vp, vp, vp, vp, vp, i32, vp, vp, vp]
     lib.tm_set_comb.argtypes = [i32, vp, sz]
     lib.tm_ed25519_build_tables.argtypes = [vp, i32, vp, vp, vp]
-    lib.tm_ed25519_lanes.argtypes = [vp, vp]
+    lib.tm_ed25519_lanes.argtypes = [vp, vp, vp]
     lib.tm_ed25519_lanes.restype = None
     lib.tm_ed25519_prepare_tabled.argtypes = [vp, vp, i32, vp, i32, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, vp]
     lib.tm_ed25519_scan_tabled.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp, vp, vp]
     lib.tm_sha256_leaf_blocks.argtypes = [vp, vp, vp, i32, i32, vp, vp]
     lib.tm_merkle_inner_level.argtypes = [vp, i32, i32, vp, vp]
     lib.tm_set_bls_constants.argtypes = [i32, vp, sz]
-    lib.tm_bls12_lanes.argtypes = [vp, vp]
+    lib.tm_bls12_lanes.argtypes = [vp, vp, vp, vp]
     lib.tm_bls12_lanes.restype = None
     lib.tm_bls12_pairing_check.argtypes = [vp, vp, vp, i32, i32, vp, vp, vp]
     lib.tm_bls12_map_to_g2.argtypes = [vp, vp, i32, vp, vp, vp]
-    lib.tm_bls12_g1_aggregate.argtypes = [vp, vp, i32, i32, vp, vp, vp]
+    lib.tm_bls12_g1_aggregate_scratch.argtypes = [i32, i32]
+    lib.tm_bls12_g1_aggregate_scratch.restype = sz
+    lib.tm_bls12_g1_aggregate.argtypes = [vp, vp, i32, i32, vp, vp, vp, vp]
     for fn in (lib.tm_set_constants, lib.tm_ed25519_prepare, lib.tm_ed25519_scan, lib.tm_ed25519_finish,
                lib.tm_set_comb, lib.tm_ed25519_build_tables, lib.tm_ed25519_prepare_tabled,
                lib.tm_ed25519_scan_tabled, lib.tm_sha256_leaf_blocks, lib.tm_merkle_inner_level,

@@ -674,22 +674,27 @@ def g1_aggregate(points: torch.Tensor, mask: torch.Tensor):
         from tendermint_tpu_torch.ops._build import check
 
         lib = _lib(dev)
-        check(lib, lib.tm_bls12_g1_aggregate(points.data_ptr(), mask.data_ptr(), b, v, out.data_ptr(),
-                                             inf.data_ptr(), _stream(dev)), "bls12_g1_aggregate launch")
+        # the blocks' partial sums and a counter a row, for this call only
+        scratch = torch.empty(lib.tm_bls12_g1_aggregate_scratch(b, v), dtype=torch.uint8, device=dev)
+        check(lib, lib.tm_bls12_g1_aggregate(points.data_ptr(), mask.data_ptr(), b, v, scratch.data_ptr(),
+                                             out.data_ptr(), inf.data_ptr(), _stream(dev)), "bls12_g1_aggregate launch")
         g1_aggregate.launches += 1
     return out, inf
 
 
 def lanes(device=None) -> dict:
-    """The lanes G that work one row of the pairing and of the map kernel,
-    as compiled into the library (loads it on `device`, default cuda)."""
+    """The lanes G that work one row of the pairing and of the map kernel
+    and one addition of the aggregate, and the aggregate's points a block
+    ("bls12_g1_aggregate_chunk"), as compiled into the library (loads it
+    on `device`, default cuda)."""
     import ctypes
 
     dev = torch.device("cuda" if device is None else device)
     lib = _lib(dev)
-    pairing, mapped = ctypes.c_int(), ctypes.c_int()
-    lib.tm_bls12_lanes(ctypes.byref(pairing), ctypes.byref(mapped))
-    return {"bls12_pairing_check": pairing.value, "bls12_map_to_g2": mapped.value}
+    pairing, mapped, agg, chunk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.tm_bls12_lanes(ctypes.byref(pairing), ctypes.byref(mapped), ctypes.byref(agg), ctypes.byref(chunk))
+    return {"bls12_pairing_check": pairing.value, "bls12_map_to_g2": mapped.value, "bls12_g1_aggregate": agg.value,
+            "bls12_g1_aggregate_chunk": chunk.value}
 
 
 def map_to_g2(u0: torch.Tensor, u1: torch.Tensor):

@@ -87,15 +87,15 @@ def _stream(device: torch.device) -> int:
 
 
 def lanes(device=None) -> dict:
-    """The lanes G that work one row of ed25519_scan and one validator of
-    ed25519_build_tables, as compiled into the library (loads it on
-    `device`, default cuda)."""
+    """The lanes G that work one row of ed25519_scan, one validator of
+    ed25519_build_tables and one row of ed25519_scan_tabled, as compiled
+    into the library (loads it on `device`, default cuda)."""
     import ctypes
 
     lib = _lib(torch.device("cuda" if device is None else device))
-    scan, build = ctypes.c_int(), ctypes.c_int()
-    lib.tm_ed25519_lanes(ctypes.byref(scan), ctypes.byref(build))
-    return {"ed25519_scan": scan.value, "ed25519_build_tables": build.value}
+    scan, build, tabled = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.tm_ed25519_lanes(ctypes.byref(scan), ctypes.byref(build), ctypes.byref(tabled))
+    return {"ed25519_scan": scan.value, "ed25519_build_tables": build.value, "ed25519_scan_tabled": tabled.value}
 
 
 # -- stage 1 ------------------------------------------------------------------

@@ -27,7 +27,7 @@ class HostEd25519:
     (``_build.constants_blob``, the kernels' own)."""
 
     def __init__(self, build_dir) -> None:
-        from tendermint_tpu_torch.ops._build import constants_blob
+        from tendermint_tpu_torch.ops._build import comb_blob, constants_blob
 
         out = Path(build_dir) / "libed25519_host.so"
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -41,11 +41,18 @@ class HostEd25519:
         lib.ed_host_scan_row.argtypes = [vp, vp, vp, vp, i32]
         lib.ed_host_scan_row.restype = None
         lib.ed_host_build_row.argtypes = [vp, vp, i32]
-        for fn in (lib.ed_host_set_constants, lib.ed_host_fe_op, lib.ed_host_point_op, lib.ed_host_build_row):
+        lib.ed_host_set_comb.argtypes = [vp, ctypes.c_size_t]
+        lib.ed_host_scan_tabled_row.argtypes = [vp, vp, vp, vp, i32]
+        lib.ed_host_scan_tabled_row.restype = None
+        for fn in (lib.ed_host_set_constants, lib.ed_host_fe_op, lib.ed_host_point_op, lib.ed_host_build_row,
+                   lib.ed_host_set_comb):
             fn.restype = i32
         blob = constants_blob()
         if lib.ed_host_set_constants(blob, len(blob)) != 0:
             raise RuntimeError("the host build's TmConstants struct differs from constants_blob()")
+        blob = comb_blob()
+        if lib.ed_host_set_comb(blob, len(blob)) != 0:
+            raise RuntimeError("the base comb's size differs from the host build's")
         self.lib = lib
 
     def fe_op(self, op: int, a, b=None) -> np.ndarray:
@@ -73,6 +80,18 @@ class HostEd25519:
         a = np.ascontiguousarray(neg_a, dtype=np.int32)
         out = np.zeros((4, 10), dtype=np.int32)
         self.lib.ed_host_scan_row(out.ctypes.data, s.ctypes.data, k.ctypes.data, a.ctypes.data, lanes)
+        return out
+
+    def scan_tabled_row(self, sd8, kd, table, lanes: int = 4) -> np.ndarray:
+        """One ed25519_scan_tabled row: sd8 (32,), kd (64,) int8, table the
+        row's validator's (16, 8, 3, 10) int32, or None for an index out of
+        range -> (4, 10) int32."""
+        s = np.ascontiguousarray(sd8, dtype=np.int8)
+        k = np.ascontiguousarray(kd, dtype=np.int8)
+        t = None if table is None else np.ascontiguousarray(table, dtype=np.int32)
+        out = np.full((4, 10), -1, dtype=np.int32)
+        self.lib.ed_host_scan_tabled_row(out.ctypes.data, s.ctypes.data, k.ctypes.data,
+                                         None if t is None else t.ctypes.data, lanes)
         return out
 
     def build_row(self, pk: bytes, lanes: int = 4):

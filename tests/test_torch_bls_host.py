@@ -182,8 +182,9 @@ def test_map_row_equals_the_oracle(host, lanes):
 
 
 def test_g1_sum_equals_the_oracle(host):
-    """bls12_g1_aggregate's work for one batch row (its strided shares and
-    tree): a ragged selection, P + (-P), the empty selection."""
+    """bls12_g1_aggregate's work for one batch row (its chunks, groups,
+    trees and final combine, at the compiled chunk and lanes): a ragged
+    selection, P + (-P), the empty selection."""
     pts = [B.g1_mul(i + 3, B.G1_GEN) for i in range(150)]
     pts[7] = B.g1_neg(pts[3])
     buf = b"".join(_g1(p) for p in pts)
@@ -196,3 +197,91 @@ def test_g1_sum_equals_the_oracle(host):
         out, inf = host.g1_sum(buf, mask)
         got = None if inf else (int.from_bytes(out[:48], "big"), int.from_bytes(out[48:], "big"))
         assert got == acc
+
+
+AGG_LANES = (2, 4, 8, 16)
+
+
+def _proj(p, z: int) -> bytes:
+    """The affine point p (None: the identity) as (X, Y, Z) = (x z, y z, z)."""
+    if p is None:
+        return T.fp_bytes(0) + T.fp_bytes(1) + T.fp_bytes(0)
+    return T.fp_bytes(p[0] * z % P) + T.fp_bytes(p[1] * z % P) + T.fp_bytes(z)
+
+
+def _affine(buf: bytes):
+    x, y, z = (int.from_bytes(buf[48 * i:48 * i + 48], "big") for i in range(3))
+    if z == 0:
+        assert y != 0, "a projective point with Y = Z = 0"
+        return None
+    zi = pow(z, -1, P)
+    return x * zi % P, y * zi % P
+
+
+@pytest.mark.parametrize("lanes", AGG_LANES)
+@pytest.mark.parametrize("case", ["random", "coincident", "negated", "identity"])
+def test_g1_add_on_lanes_equals_the_oracle(host, lanes, case):
+    """g1_add_stages (projective, and mixed with an affine q) against the
+    oracle's g1_add: P + Q, P + P, P + (-P), and the identity on either
+    side (the complete formulas, no special path)."""
+    p = B.g1_mul(rng.randrange(1, B.R), B.G1_GEN)
+    q = {"random": B.g1_mul(rng.randrange(1, B.R), B.G1_GEN), "coincident": p, "negated": B.g1_neg(p),
+         "identity": None}[case]
+    zp, zq = rng.randrange(1, P), rng.randrange(1, P)
+    pairs = [(p, q), (q, p)]
+    for a, b in pairs:
+        want = B.g1_add(a, b)
+        assert _affine(host.g1_add(_proj(a, zp), _proj(b, zq), lanes)) == want
+        if b is not None:  # the mixed form: q affine
+            assert _affine(host.g1_add(_proj(a, zp), _g1(b), lanes)) == want
+
+
+def _mont(x: int) -> int:
+    return x * R % P
+
+
+@pytest.mark.parametrize("case", ["zero", "one", "p_minus_one", "powers_of_two", "random"])
+def test_gcd_inverse_equals_fermat(host, case):
+    """fp_inv_gcd against pow(a, p - 2, p) in Montgomery form (in: aR, out:
+    a^-1 R), and against the kernels' Fermat fp_inv; 0 -> 0."""
+    vals = {"zero": [0], "one": [1], "p_minus_one": [P - 1], "powers_of_two": [1 << k for k in range(381)],
+            "random": [rng.randrange(P) for _ in range(300)]}[case]
+    for a in vals:
+        got, steps = host.fp_op_steps(4, _mont(a))
+        assert got == (_mont(pow(a, P - 2, P)) if a else 0), a
+        assert steps <= 37  # at most (49 * 381 + 80) // 17 = 1,102 divsteps (safegcd), 30 a batch
+        if a in (0, 1, P - 1) or a == vals[-1]:
+            assert got == host.fp_op(3, _mont(a))
+    if case == "zero":
+        assert host.fp_op_steps(4, 0) == (0, 0)
+
+
+@pytest.fixture(scope="module")
+def agg_points():
+    """300 points P_i = (i + 3) G1, P_7 = -P_3, and the oracle's running
+    sums of every selection below."""
+    pts = [B.g1_mul(i + 3, B.G1_GEN) for i in range(300)]
+    pts[7] = B.g1_neg(pts[3])
+    return pts, b"".join(_g1(p) for p in pts)
+
+
+@pytest.mark.parametrize("lanes", AGG_LANES)
+@pytest.mark.parametrize("v", [0, 1, 7, 128, 300])
+def test_chunked_g1_sum_equals_the_oracle(host, agg_points, lanes, v):
+    """The aggregate's chunked sum and final combine over V points: chunks
+    of 16 (many blocks, V = 300 leaving a short last chunk; P_3 and -P_3
+    in different blocks), 64 and 128 (a chunk above V at small V), masks
+    ragged, all, none and P + (-P)."""
+    pts, buf = agg_points
+    masks = [bytes(rng.random() < 0.5 for _ in range(v)), bytes([1] * v), bytes(v),
+             bytes(i in (3, 7) for i in range(v))]
+    for mask in masks:
+        acc = None
+        for p, m in zip(pts, mask):
+            if m:
+                acc = B.g1_add(acc, p)
+        for chunk in (16, 64, 128):
+            out, inf = host.g1_sum(buf[:96 * v], mask, chunk, lanes)
+            got = None if inf else (int.from_bytes(out[:48], "big"), int.from_bytes(out[48:], "big"))
+            assert got == acc, (chunk, mask.hex())
+            assert not inf or out == bytes(96)

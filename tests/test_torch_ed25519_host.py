@@ -165,3 +165,46 @@ def test_build_row_matches_plain_and_jax(host, batch, build_want, lanes):
     np.testing.assert_array_equal(ok, plain_ok)
     np.testing.assert_array_equal(ok, jax_ok)
     assert not ok[5] and ok.sum() == pk.shape[0] - 1
+
+
+TABLED_CASES = {
+    # row r reads validator idx[r]'s tables; kd/sd8 edits make the digits
+    "as_signed": lambda sd8, kd: None,
+    "zero_digits": lambda sd8, kd: (kd[::2].zero_(), sd8[1::2].zero_(), kd[1, ::3].zero_()),
+    "negative_digits": lambda sd8, kd: (kd.copy_(-kd.abs().clamp(min=1)), sd8.copy_(-sd8.abs().clamp(min=1)),
+                                        sd8[0].fill_(-128), kd[0].fill_(-8)),
+}
+TABLED_IDX = [3, 3, 0, 15, 7, 5, 6, 2, 9, 9, 9, 12, 1, 5, 4, 13]  # repeats; 5's key does not decompress
+
+
+@pytest.fixture(scope="module")
+def tabled_batch(batch):
+    """The batch's keys as a set (tables by the plain build) and its rows
+    prepared against it through TABLED_IDX."""
+    pk = batch[0]
+    tables, a_ok = ted.build_tables_plain(pk)
+    idx = torch.tensor(TABLED_IDX, dtype=torch.int32)
+    rows, _ = adversarial_rows(seed=20261017)
+    msg, sig = (torch.from_numpy(stack(rows, k)) for k in (1, 2))
+    sd8, kd, _s_ok = ted.prepare_tabled_plain(pk, sig[idx.long()], idx=idx, msgs=msg[idx.long()])
+    return tables, a_ok, idx, sd8, kd
+
+
+@pytest.mark.parametrize("lanes", SCAN_LANES)
+@pytest.mark.parametrize("case", sorted(TABLED_CASES))
+def test_scan_tabled_row_matches_plain(host, tabled_batch, lanes, case):
+    """A row of ed25519_scan_tabled on G lanes (the staged mixed addition
+    reading each entry's fields by lane) against scan_tabled_plain: the
+    prepared rows through repeated indices (the undecodable key's table
+    among them), with digits zeroed or made negative; and a row whose
+    index is out of range, which writes zeros."""
+    tables, a_ok, idx, sd8, kd = tabled_batch
+    sd8, kd = sd8.clone(), kd.clone()
+    TABLED_CASES[case](sd8, kd)
+    want, want_ok = ted.scan_tabled_plain(sd8, kd, tables, a_ok, idx)
+    got = np.stack([host.scan_tabled_row(sd8[r].numpy(), kd[r].numpy(), tables[int(idx[r])].numpy(), lanes)
+                    for r in range(len(idx))])
+    assert (got[:, 3] == 0).all()
+    np.testing.assert_array_equal(_values(got), _values(want.numpy()))
+    assert not bool(want_ok[5]) and not bool(want_ok[13])  # the undecodable key's rows
+    np.testing.assert_array_equal(host.scan_tabled_row(sd8[0].numpy(), kd[0].numpy(), None, lanes), 0)

@@ -15,6 +15,9 @@ compared as bytes of the canonical field values (all 16 x 16 x 8 table
 entries, garbage key included), digits and flags as they are.
 """
 
+import shutil
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +32,7 @@ from tendermint_tpu_torch.ops import curve
 from tendermint_tpu_torch.ops import ed25519 as ted
 from tendermint_tpu_torch.ops import field as F
 from tendermint_tpu_torch.ops import ref_ed25519 as ref
+from tendermint_tpu_torch.ops.ed25519_host import HostEd25519
 from tests.torch_port_helpers import stack, templated_rows
 
 N = 16
@@ -164,6 +168,32 @@ def test_scan_tabled_matches_jax(jax_tables, port_tables, jax_rows, pattern):
             np.testing.assert_array_equal(_bytes_port(point[:, c]), _bytes_jax(want[key]))
         assert not point[:, 3].any()
         np.testing.assert_array_equal(row_ok.numpy(), want["row_ok"])
+
+
+@pytest.fixture(scope="module")
+def host():
+    """The ed25519 kernels' headers built as host C++ (g++), once."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on the PATH: the host build of the ed25519 headers needs a C++ compiler")
+    with tempfile.TemporaryDirectory() as d:
+        yield HostEd25519(d)
+
+
+@pytest.mark.parametrize("lanes", (2, 4, 8))
+@pytest.mark.parametrize("pattern", sorted(PATTERNS))
+def test_scan_tabled_row_on_lanes_matches_jax(jax_tables, jax_rows, host, lanes, pattern):
+    """ed25519_scan_tabled's row on G lanes (the host build of its
+    formulas, ge25519_lanes.cuh scan_tabled_row) against the JAX package's
+    verify_stage_scan_tabled on the JAX prepare's digits and the JAX
+    tables carried across: X, Y, Z as field values, T zero."""
+    want = jax_rows[pattern]
+    tables, _a_ok = convert.valset_tables(*jax_tables)
+    idx = PATTERNS[pattern]
+    got = np.stack([host.scan_tabled_row(want["sd8"][r].astype(np.int8), want["kd"][r].astype(np.int8),
+                                         tables[int(idx[r])].numpy(), lanes) for r in range(N)])
+    assert (got[:, 3] == 0).all()
+    for c, key in enumerate("xyz"):
+        np.testing.assert_array_equal(_bytes_port(torch.from_numpy(got[:, c])), _bytes_jax(want[key]))
 
 
 @pytest.mark.parametrize("pattern", sorted(PATTERNS))
