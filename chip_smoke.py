@@ -13,7 +13,11 @@ Phases (any failure raises and ends the run with a nonzero exit):
    one 1,024-row batch of honest and adversarial rows (s + L, flipped R,
    s and message bits, an undecodable key, a non-canonical A.y, small-order
    A and R), exactly at the byte seams; hold the verdicts against the
-   pure-Python oracle; and RFC 8032 vector 1 (empty message).
+   pure-Python oracle; and RFC 8032 vector 1 (empty message). Then on
+   batches whose rows are not a multiple of a warp's 32, with an
+   undecodable key in the last row of a warp and in the last row.
+   ed25519_finish also gets its points with Z set to 0 in the first, the
+   middle and the last row (1 / 0 is 0: y = 0).
 3. The generic path: a 10,000-validator ValidatorSet and a signed commit
    (about 90 % for the block, some nil and absent rows) through
    ValidatorSet.verify_commit with a TorchBatchVerifier whose tabled
@@ -48,8 +52,9 @@ Phases (any failure raises and ends the run with a nonzero exit):
    out of range in the last group of a warp and in the last row (zeros
    and a_ok 0). Timing as in 4. The lane group G that ed25519_scan,
    ed25519_build_tables and ed25519_scan_tabled were compiled with (the
-   other G are timed by scripts/ed25519_lane_sweep.py), and the three
-   kernels' registers, spill stores and loads and stack frame.
+   other G are timed by scripts/ed25519_lane_sweep.py), and those three
+   kernels' and ed25519_prepare's and ed25519_finish's registers, spill
+   stores and loads and stack frame.
 6. The merkle kernels (sha256_leaf_blocks, merkle_inner_level) against
    their plain versions, exactly at the (8, N) state seams, with every
    level on the card: on the 10,000 validators' leaves, on the
@@ -76,9 +81,10 @@ Phases (any failure raises and ends the run with a nonzero exit):
    quorum in h2 (ErrInvalidCommitSignature out of verify_chain), each
    with the JAX package's class and message. Timing: p50 of verify
    (adjacent) and of verify_chain over warm runs on fresh objects, and
-   the validator-set hash's share of an adjacent step; ed25519_scan alone
-   on the device at the rows of verify_chain's generic batch (about
-   28,500), held against its plain version there.
+   the validator-set hash's share of an adjacent step; ed25519_prepare,
+   ed25519_scan and ed25519_finish alone on the device at the rows of
+   verify_chain's generic batch (about 28,500), each held against its
+   plain version there.
 
 8. BLS12-381 at 128 validators (keys from seeds, each proof of
    possession made and registered through the port's
@@ -141,7 +147,10 @@ Before the last line it prints one JSON object with a row per kernel
 from phase 9's two-lane calls; for ed25519 the field products and
 squarings a row, a squaring counted at 55 multiply-adds and a product at
 100, and the -Xptxas -v registers and spills; lanes for the kernels whose
-row is G lanes), then the nvidia-smi line. In every row `ms` is the median time a call of
+row is G lanes; for ed25519_finish its bound with one inversion a row
+beside the one counted, by a binary GCD and by Fermat's chain,
+bound_ms_gcd_inversion_a_row and bound_ms_fermat_inversion_a_row),
+then the nvidia-smi line. In every row `ms` is the median time a call of
 back-to-back calls, the wrapper's host cost of a launch included, and
 `ms_device_only` the device alone (a sleep kernel holds the stream
 while the host enqueues the calls); the last line is {"ok": true, "device": {...}}. Every
@@ -173,6 +182,17 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_OPS_PER_S = 67e12 / 2
 OPS_PER_FIELD_MUL = 2 * 100  # 100 limb products, each a 32x32->64 multiply-add
 OPS_PER_FIELD_SQUARE = 2 * 55  # a squaring needs 55 (ref10's fe_sq; csrc/fe25519.cuh)
+# An inversion mod 2^255 - 19 by a binary GCD, counted as GCD_INV_OPS
+# (phase 8) counts the BLS one: 2 len(p) - 1 = 509 divsteps, each at least
+# six 32-bit instructions, and for each batch of 30 ten products of a
+# 9-limb number by a 30-bit factor, 9 multiply-adds each; 2 operations an
+# instruction. ed25519_finish needs one 1 / Z a row, and the least work for
+# a batch of them is Montgomery's batch inversion: three products a row
+# and one inversion a launch (this GCD, fewer operations than Fermat's 265
+# products), whatever the kernel runs.
+ED_GCD_DIVSTEPS = 2 * 255 - 1
+ED_GCD_INV_OPS = 2 * (6 * ED_GCD_DIVSTEPS + -(-ED_GCD_DIVSTEPS // 30) * 10 * 9)
+BATCH_INV_MULS_PER_ROW = 3
 # SHA-512 on 32-bit lanes: one compression is 80 rounds of about 23
 # 64-bit operations (three rotates and two XORs in each sigma, choice,
 # majority, five additions) and 64 schedule words of about 13, each
@@ -340,6 +360,25 @@ def adversarial_batch(rng, n: int):
     return rows
 
 
+RAGGED_ROWS = (37, 259)  # batches whose rows are not a multiple of a warp's
+
+
+def ragged_batch(rng, n: int):
+    """adversarial_batch(n) with an undecodable key in the last row of the
+    first warps (rows 31, 63, ...) and in the last row, where the
+    kernels' last warp has rows past n."""
+    from tendermint_tpu_torch.ops import ref_ed25519 as ref
+
+    rows = adversarial_batch(rng, n)
+    for r in list(range(31, n, 32))[:4] + [n - 1]:
+        while True:
+            pk = rng.bytes(32)
+            if ref.pt_decode(pk) is None:
+                break
+        rows[r] = (pk, rows[r][1], rows[r][2])
+    return rows
+
+
 def to_dev(rows, k: int) -> torch.Tensor:
     return torch.from_numpy(np.stack([np.frombuffer(r[k], dtype=np.uint8) for r in rows])).cuda()
 
@@ -366,6 +405,12 @@ def compare_kernels(ed, field, pk, msg, sig, powers, counted):
     err_fin = max(seam_err(ok, pok), seam_err(tally, ptally))
     ok_untallied = ed.verify_stage_finish(point, sig, prep[3], prep[4])
     err_fin = max(err_fin, seam_err(ok_untallied, ok))
+    # points whose Z is 0 (the inversion's 0 -> 0) in the first, middle and last row
+    zero_z = point.clone()
+    zero_z[[0, zero_z.shape[0] // 2, -1], 2] = 0
+    zk, zt = ed.verify_stage_finish(zero_z, sig, prep[3], prep[4], tally=True, powers=powers, counted=counted)
+    zp, zpt = ed.finish_plain(zero_z, sig, prep[3], prep[4], powers, counted)
+    err_fin = max(err_fin, seam_err(zk, zp), seam_err(zt, zpt))
     torch.cuda.synchronize()
     return {"ed25519_prepare": err_prep, "ed25519_scan": err_scan, "ed25519_finish": err_fin}, ok
 
@@ -635,6 +680,16 @@ def kernel_row(name, source, launches, err, ms, plain_ms, io_bytes, ops, rows, m
         "bytes": io_bytes,
         "ops": ops,
     }
+
+
+def bound_at(row, n: int):
+    """(bound ms, "bytes" or "operations") of a kernel row's work scaled
+    to n rows: its bytes and operations a row times n, plus the
+    operations it counts once a launch (ops_per_launch)."""
+    fixed = row.get("ops_per_launch", 0)
+    bytes_s = row["bytes"] / row["rows"] * n / HBM_BYTES_PER_S
+    ops_s = ((row["ops"] - fixed) / row["rows"] * n + fixed) / INT32_MAD_OPS_PER_S
+    return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s > ops_s else "operations"
 
 
 # -- phases 6 and 7: merkle roots and the light client ------------------------
@@ -985,8 +1040,9 @@ def phase7(vs, by_addr, rng, card, kernels):
             f"verify_chain over two sets took the generic path alone: {chain}")
     print(f"  verify_chain(h1, [h2, h4]) passed: launches {chain}")
 
-    # ed25519_scan alone at the rows of verify_chain's one generic batch
-    # (h2's commit under S, h4's under S'), held against its plain version
+    # the generic kernels alone at the rows of verify_chain's one generic
+    # batch (h2's commit under S, h4's under S'), held against their plain
+    # versions
     from tendermint_tpu_torch.models.verifier import VerifierModel
     from tendermint_tpu_torch.ops import field
 
@@ -999,18 +1055,38 @@ def phase7(vs, by_addr, rng, card, kernels):
         VerifierModel.verify = model_verify
     require(len(seen) == 1, f"verify_chain made one generic batch: {len(seen)}")
     rows_c = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).cuda() for a in seen[0]]
-    prep_c = ed.verify_stage_prepare(*rows_c)
-    fb = lambda limbs: field.to_bytes(limbs.to(torch.int64))  # noqa: E731
-    err_c = seam_err(fb(ed.verify_stage_scan(*prep_c[:3])), fb(ed.scan_plain(*prep_c[:3])))
-    require(err_c == 0, f"ed25519_scan identical to its plain version at verify_chain's rows: {err_c}")
     n_c = rows_c[0].shape[0]
-    scan_ms_c = device_ms(lambda: ed.verify_stage_scan(*prep_c[:3]), reps=10)
-    row = kernels["ed25519_scan"]
-    bound_c = 1e3 * n_c * (row["ops"] / row["rows"]) / INT32_MAD_OPS_PER_S
-    row.update(rows_verify_chain=n_c, ms_device_only_verify_chain=scan_ms_c, bound_ms_verify_chain=bound_c,
-               max_abs_err_verify_chain=err_c)
-    print(f"  ed25519_scan at verify_chain's {n_c} rows: {scan_ms_c:.4f} ms on the device alone (bound "
-          f"{bound_c:.4f} ms by operations), identical to its plain version ({card})")
+    prep_c = ed.verify_stage_prepare(*rows_c)
+    plain_c = ed.prepare_plain(*rows_c)
+    fb = lambda limbs: field.to_bytes(limbs.to(torch.int64))  # noqa: E731
+    point_c = ed.verify_stage_scan(*prep_c[:3])
+    pw_c = torch.ones(n_c, dtype=torch.int64, device="cuda")
+    cnt_c = torch.ones(n_c, dtype=torch.bool, device="cuda")
+    fin_c = ed.verify_stage_finish(point_c, rows_c[2], prep_c[3], prep_c[4], tally=True, powers=pw_c, counted=cnt_c)
+    fin_p = ed.finish_plain(point_c, rows_c[2], prep_c[3], prep_c[4], pw_c, cnt_c)
+    errs_c = {
+        "ed25519_prepare": max([seam_err(prep_c[i], plain_c[i]) for i in (0, 1, 3, 4)]
+                               + [seam_err(fb(prep_c[2]), fb(plain_c[2]))]),
+        "ed25519_scan": seam_err(fb(point_c), fb(ed.scan_plain(*prep_c[:3]))),
+        "ed25519_finish": max(seam_err(fin_c[0], fin_p[0]), seam_err(fin_c[1], fin_p[1])),
+    }
+    require(all(e == 0 for e in errs_c.values()), f"generic kernels identical to their plain versions at "
+                                                  f"verify_chain's rows: {errs_c}")
+    require(bool(fin_c[0].all()), "every row of verify_chain's batch verifies")
+    runs_c = {
+        "ed25519_prepare": lambda: ed.verify_stage_prepare(*rows_c),
+        "ed25519_scan": lambda: ed.verify_stage_scan(*prep_c[:3]),
+        "ed25519_finish": lambda: ed.verify_stage_finish(point_c, rows_c[2], prep_c[3], prep_c[4], tally=True,
+                                                         powers=pw_c, counted=cnt_c),
+    }
+    for name, run in runs_c.items():
+        ms_c = device_ms(run, reps=10)
+        row = kernels[name]
+        bound_c, by_c = bound_at(row, n_c)
+        row.update(rows_verify_chain=n_c, ms_device_only_verify_chain=ms_c, bound_ms_verify_chain=bound_c,
+                   max_abs_err_verify_chain=errs_c[name])
+        print(f"  {name} at verify_chain's {n_c} rows: {ms_c:.4f} ms on the device alone (bound "
+              f"{bound_c:.4f} ms by {by_c}), identical to its plain version ({card})")
 
     def expect(fn, cls: str, message: str, what: str) -> None:
         try:
@@ -2170,8 +2246,20 @@ def main() -> int:
         torch.ones(2, dtype=torch.bool, device="cuda"),
     )
     require(all(e == 0 for e in rfc_errs.values()) and rfc_ok.tolist() == [True, False], "RFC 8032 vector 1")
+    ragged = {}
+    for nr in RAGGED_ROWS:
+        rrows = ragged_batch(rng, nr)
+        rwant = [ref.verify(*r) for r in rrows]
+        rerrs, rok = compare_kernels(ed, field, to_dev(rrows, 0), to_dev(rrows, 1), to_dev(rrows, 2),
+                                     torch.from_numpy(rng.integers(1, 1 << 40, nr)).cuda(),
+                                     torch.from_numpy(rng.random(nr) < 0.8).cuda())
+        require(all(e == 0 for e in rerrs.values()), f"kernels identical to plain versions at {nr} rows: {rerrs}")
+        require(rok.tolist() == rwant, f"kernel verdicts equal the oracle at {nr} rows")
+        ragged[nr] = sum(rwant)
     print(f"phase 2: {N_BATCH} rows ({sum(want)} valid), seams identical, verdicts = oracle; "
-          f"RFC 8032 vector 1 ok ({time.perf_counter() - t0:.1f} s)")
+          f"RFC 8032 vector 1 ok; ragged batches {', '.join(f'{k} rows ({v} valid)' for k, v in ragged.items())} "
+          f"(undecodable keys in warps' last rows and the last row): "
+          f"seams identical, verdicts = oracle ({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 3: the generic path -------------------------------------------
     t0 = time.perf_counter()
@@ -2261,6 +2349,13 @@ def main() -> int:
     sha_blocks = (64 + m + 17 + 127) // 128
     ops = {name: n * field_ops(muls[name]) for name in muls}
     ops["ed25519_prepare"] += n * sha_blocks * OPS_PER_SHA512_BLOCK
+    # finish's inversions as one batch inversion (ED_GCD_INV_OPS); beside it,
+    # one inversion a row by the GCD and by Fermat's chain (the plain
+    # version's, counted)
+    inv_fermat = field_ops(field_muls_per_row(lambda: field.invert(one_point[:, 2].to(torch.int64))))
+    fin_rest = field_ops(muls["ed25519_finish"]) - inv_fermat
+    ops_fin_a_row = {"gcd": n * (fin_rest + ED_GCD_INV_OPS), "fermat": n * (fin_rest + inv_fermat)}
+    ops["ed25519_finish"] = n * (fin_rest + BATCH_INV_MULS_PER_ROW * OPS_PER_FIELD_MUL) + ED_GCD_INV_OPS
     io_bytes = {  # each input read once, each output written once
         "ed25519_prepare": n * (32 + m + 64) + n * (64 + 64 + 160 + 1 + 1),
         "ed25519_scan": n * (64 + 64 + 160) + n * 160,
@@ -2282,6 +2377,15 @@ def main() -> int:
         kernels[name].update(max_abs_err_adversarial=errs[name], max_abs_err_main_path=errs_main[name],
                              ms_device_only=device_ms(kern, reps=20),
                              field_squarings_per_row=muls[name]["squarings"], **ptxas_usage(name))
+    fin = kernels["ed25519_finish"]
+    fin.update(ops_per_launch=ED_GCD_INV_OPS, inversion_ops_gcd=ED_GCD_INV_OPS, inversion_ops_fermat=inv_fermat,
+               **{f"bound_ms_{k}_inversion_a_row": 1e3 * max(io_bytes["ed25519_finish"] / HBM_BYTES_PER_S,
+                                                             v / INT32_MAD_OPS_PER_S)
+                  for k, v in ops_fin_a_row.items()})
+    print(f"  ed25519_finish's bound {fin['bound_ms']:.4f} ms by {fin['bound_by']}: its inversions counted as one "
+          f"batch inversion ({BATCH_INV_MULS_PER_ROW} products a row and a binary GCD's {ED_GCD_INV_OPS} "
+          f"operations a launch); [{fin['bound_ms_gcd_inversion_a_row']:.4f} ms with a GCD a row, "
+          f"{fin['bound_ms_fermat_inversion_a_row']:.4f} with Fermat's chain a row]")
     print(f"  generic kernels sum {sum(k['ms'] for k in kernels.values()):.4f} ms of the fresh-commit verify_commit p50 {p50:.3f} ms")
 
     # -- phase 5: the per-valset tabled path -----------------------------------
@@ -2463,6 +2567,10 @@ def main() -> int:
         kernels[name].update(replaces=replaces_t[name], max_abs_err_adversarial=errs_t_adv[name],
                              max_abs_err_main_path=errs_t_main[name], ms_device_only=device_ms(kern, reps=reps),
                              field_squarings_per_row=tmuls[name]["squarings"], **ptxas_usage(name))
+    for name in ("ed25519_prepare", "ed25519_finish"):
+        print(f"  {name}: one thread a row; -Xptxas -v: {kernels[name]['registers']} registers, "
+              f"{kernels[name]['spill_stores']} / {kernels[name]['spill_loads']} bytes of spill stores / loads, "
+              f"{kernels[name]['stack_frame']} bytes of stack frame")
     for name, g in ed.lanes().items():
         kernels[name]["lanes"] = g
         print(f"  {name}: G = {g} lanes a {'validator' if 'build' in name else 'row'} (compiled in); -Xptxas -v: "

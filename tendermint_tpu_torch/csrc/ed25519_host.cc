@@ -57,6 +57,48 @@ int ed_host_fe_op(int op, const int32_t* a, const int32_t* b, int32_t* r) {
   return 0;
 }
 
+// ed25519_prepare's decompression of a key: pk (32,) -> -A (4, 10) int32;
+// returns a_ok.
+int ed_host_decompress(int32_t* neg_a, const uint8_t* pk) {
+  ge_p3 A;
+  const int ok = ge_decompress(A, pk, host_k);
+  fe_neg(A.X, A.X);
+  fe_neg(A.T, A.T);
+  store_fe(neg_a, A.X);
+  store_fe(neg_a + 10, A.Y);
+  store_fe(neg_a + 20, A.Z);
+  store_fe(neg_a + 30, A.T);
+  return ok;
+}
+
+// r = 1 / a (10 int32 limbs, canonical) by the binary GCD (fe_inv_gcd),
+// returning its batches; gcd 0: by Fermat's power (fe_invert), returning 0.
+int ed_host_invert(const int32_t* a, int32_t* r, int gcd) {
+  fe z, zi;
+  load_fe(z, a);
+  int steps = 0;
+  if (gcd)
+    steps = fe_inv_gcd(zi, z);
+  else
+    fe_invert(zi, z);
+  store_fe(r, zi);
+  return steps;
+}
+
+// One ed25519_finish row: pt (4, 10) int32, r the signature's R (32 B),
+// the two checks -> ok; enc (32 B) gets the point's encoding.
+int ed_host_finish_row(const int32_t* pt, const uint8_t* r, int a_ok, int s_ok, uint8_t* enc) {
+  ge_p3 p;
+  load_fe(p.X, pt);
+  load_fe(p.Y, pt + 10);
+  load_fe(p.Z, pt + 20);
+  fe_set_small(p.T, 0);
+  ge_encode(enc, p);
+  bool match = true;
+  for (int i = 0; i < 32; i++) match &= enc[i] == r[i];
+  return match && a_ok && s_ok;
+}
+
 // One lane-staged group operation on (4, 10) points: op 0: p <- 2p
 // (dbl_stages), 1: p <- p + q for q cached read through `digit`
 // (add_stages). want_t: whether T is computed.

@@ -12,25 +12,29 @@
 // What bounds them: 32-bit integer multiply-adds. A field multiplication
 // is 100 IMAD.WIDE and a squaring 55 (fe25519.cuh); the scan does about
 // 2,900 products a row, 1,024 of them squarings (256 doublings, 128 cached
-// additions, the [1..8](-A) table), prepare and finish about 270 each,
-// nearly all squarings in one exponentiation (the square root in
-// decompression, the inversion in encode). Every row's work is the same.
+// additions, the [1..8](-A) table), prepare about 270, nearly all
+// squarings in one exponentiation (the square root in decompression), and
+// finish one inversion. Every row's work is the same but the inversion's.
 // Bytes are small: about 550 B a row in and out of prepare, under 450 B
 // for the others.
 //
 // What the design does about it. Radix 2^25.5, so that every product is
-// one IMAD.WIDE, and a dedicated squaring. prepare and finish: one thread
-// a row, each a chain of products in registers. The scan: a row on G
-// lanes of a warp (ge25519_lanes.cuh), each group formula cut into stages
-// of four independent products, one a lane, the row's point, its
-// [1..8](-A) table (1,280 B) and its digits in shared memory; so a
-// 10,000-row batch keeps some 9 warps on each SM instead of 2.4, and a
-// doubling is two product latencies deep instead of eight. G is compiled
-// in (kScanLanes, the fastest of 2, 4 and 8 at 9,510 and 28,500 rows:
-// scripts/ed25519_lane_sweep.py, PERF.md). The constant [1..8]B table and
-// the curve constants sit in __constant__ memory, uploaded from the
-// host's pure-Python oracle; the scan copies the table into each block's
-// shared memory, where the rows' different entries do not serialise.
+// one IMAD.WIDE, and a dedicated squaring. The scan: a row on G lanes of a
+// warp (ge25519_lanes.cuh), each group formula cut into stages of four
+// independent products, one a lane, the row's point, its [1..8](-A) table
+// (1,280 B) and its digits in shared memory; so a 10,000-row batch keeps
+// some 9 warps on each SM instead of 2.4, and a doubling is two product
+// latencies deep instead of eight; G is compiled in (kScanLanes, the
+// fastest of 2, 4 and 8 at 9,510 and 28,500 rows:
+// scripts/ed25519_lane_sweep.py, PERF.md). prepare: one thread a row for
+// the decompression, whose square root is one chain of products, and the
+// hash on a warp of its own a block. finish: one thread a row, the
+// inversion by a binary GCD (fe_inv_gcd, Bernstein-Yang divsteps on
+// 32-bit words) instead of Fermat's 265 products. The constant [1..8]B
+// table and the curve constants sit in __constant__ memory, uploaded from
+// the host's pure-Python oracle; the scan copies the table into each
+// block's shared memory, where the rows' different entries do not
+// serialise.
 #include <stdint.h>
 #include <cuda_runtime.h>
 
@@ -59,24 +63,43 @@ __host__ __device__ constexpr int scan_rows_per_block(int g) { return kWarp / g;
 // adds and rotates. Inputs 256 B and outputs 290 B a row.
 // pk (N,32) u8, msg (N,mlen) u8, sig (N,64) u8 ->
 // sd, kd (N,64) i8, neg_a (N,4,10) i32, a_ok, s_ok (N,) u8
-__global__ void __launch_bounds__(kBlock) ed25519_prepare(
-    const uint8_t* __restrict__ pk, const uint8_t* __restrict__ msg, const uint8_t* __restrict__ sig,
-    int n, int mlen, int8_t* __restrict__ sd, int8_t* __restrict__ kd, int32_t* __restrict__ neg_a,
-    uint8_t* __restrict__ a_ok, uint8_t* __restrict__ s_ok) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const uint8_t* p = pk + 32 * (size_t)row;
-  const uint8_t* m = msg + (size_t)mlen * row;
-  const uint8_t* s = sig + 64 * (size_t)row;
+//
+// A block of 64 rows: 64 threads decompress, a row each, and a warp of its
+// own does the scalar work (s < L, the digits of s, SHA-512 of the
+// preimage, its reduction and digits), a lane two rows, so that the hash
+// runs while the other warps decompress.
+constexpr int kPrepareThreads = kBlock + kWarp;
 
+// s < L, the digits of s, k = SHA-512(R || A || M) mod L and its digits.
+static __device__ void prepare_scalars(int row, const uint8_t* p, const uint8_t* m, const uint8_t* s, int mlen,
+                                       int8_t* sd, int8_t* kd, uint8_t* s_ok) {
   uint8_t sb[32];
 #pragma unroll
   for (int i = 0; i < 32; i++) sb[i] = s[32 + i];
   s_ok[row] = sc_is_canonical(sb);
   signed_digits(sd + 64 * (size_t)row, sb);
+  uint8_t h[64], k[32];
+  tm_sha512_preimage(h, s, p, MatMsg{m}, mlen, c_k.sha512_k);
+  sc_reduce(k, h);
+  signed_digits(kd + 64 * (size_t)row, k);
+}
 
+__global__ void __launch_bounds__(kPrepareThreads) ed25519_prepare(
+    const uint8_t* __restrict__ pk, const uint8_t* __restrict__ msg, const uint8_t* __restrict__ sig,
+    int n, int mlen, int8_t* __restrict__ sd, int8_t* __restrict__ kd, int32_t* __restrict__ neg_a,
+    uint8_t* __restrict__ a_ok, uint8_t* __restrict__ s_ok) {
+  const int base = blockIdx.x * kBlock;
+  if ((int)threadIdx.x >= kBlock) {  // the hash warp
+#pragma unroll 1
+    for (int row = base + (int)threadIdx.x - kBlock; row < base + kBlock && row < n; row += kWarp)
+      prepare_scalars(row, pk + 32 * (size_t)row, msg + (size_t)mlen * row, sig + 64 * (size_t)row, mlen, sd, kd,
+                      s_ok);
+    return;
+  }
+  const int row = base + (int)threadIdx.x;
+  if (row >= n) return;
   ge_p3 A;
-  a_ok[row] = ge_decompress(A, p, c_k);
+  a_ok[row] = ge_decompress(A, pk + 32 * (size_t)row, c_k);
   fe_neg(A.X, A.X);
   fe_neg(A.T, A.T);
   int32_t* dst = neg_a + 40 * (size_t)row;
@@ -84,11 +107,6 @@ __global__ void __launch_bounds__(kBlock) ed25519_prepare(
   store_fe(dst + 10, A.Y);
   store_fe(dst + 20, A.Z);
   store_fe(dst + 30, A.T);
-
-  uint8_t h[64], k[32];
-  tm_sha512_preimage(h, s, p, MatMsg{m}, mlen, c_k.sha512_k);
-  sc_reduce(k, h);
-  signed_digits(kd + 64 * (size_t)row, k);
 }
 
 // Replaces verify_stage_scan (ops/ed25519.py:79) ->
@@ -122,9 +140,11 @@ __global__ void __launch_bounds__(kWarp) ed25519_scan(
 
 // Replaces verify_stage_finish (ops/ed25519.py:85) and
 // verify_stage_finish_tally (:92) with curve.encode (ops/curve.py:133).
-// Bound: 267 field multiplications a row, 265 of them one inversion
-// (Fermat, z^(p-2)); the tally is one block reduction and one 64-bit
-// atomicAdd per block instead of the JAX package's four 16-bit chunk sums.
+// Bound: one inversion and two field multiplications a row; the tally is
+// one block reduction and one 64-bit atomicAdd per block instead of the
+// JAX package's four 16-bit chunk sums. One thread a row; the inversion
+// (in ge_encode) by a binary GCD, at most 25 batches of 30 divsteps, short
+// integer work, instead of Fermat's chain of 265 products.
 // pt (N,4,10) i32, sig (N,64) u8, a_ok, s_ok (N,) u8 -> ok (N,) u8; with
 // power != nullptr also *tally += sum of power where ok & counted.
 __global__ void __launch_bounds__(kBlock) ed25519_finish(
@@ -173,7 +193,7 @@ cudaError_t set_constants(const void* host, size_t bytes) {
 cudaError_t launch_prepare(const uint8_t* pk, const uint8_t* msg, const uint8_t* sig, int n, int mlen,
                            int8_t* sd, int8_t* kd, int32_t* neg_a, uint8_t* a_ok, uint8_t* s_ok,
                            cudaStream_t stream) {
-  ed25519_prepare<<<grid_for(n), kBlock, 0, stream>>>(pk, msg, sig, n, mlen, sd, kd, neg_a, a_ok, s_ok);
+  ed25519_prepare<<<grid_for(n), kPrepareThreads, 0, stream>>>(pk, msg, sig, n, mlen, sd, kd, neg_a, a_ok, s_ok);
   return cudaGetLastError();
 }
 

@@ -32,11 +32,17 @@
 // (1, 2 or 4) f_i times (1 or 19) f_j: 4 (2^26 + 2^10) and 19 (2^26 + 2^10)
 // both fit int32.
 //
+// Inversion: Fermat's power z^(p-2) (fe_invert, 265 products in one
+// chain) or a binary GCD (fe_inv_gcd, Bernstein-Yang divsteps on 30-bit
+// limbs, at the end of this file).
+//
 // The kernel sources include these headers and every function is static,
 // so each source keeps its own copy. Without nvcc (csrc/ed25519_host.cc,
 // built with g++ for the tests) the same functions compile as host C++.
 #pragma once
 #include <stdint.h>
+
+#include "divsteps.cuh"
 
 #if defined(__CUDACC__)
 #define TM_FN static __device__ __forceinline__
@@ -322,4 +328,161 @@ TM_FN void store_fe(int32_t* dst, const fe& f) {
 TM_FN void load_fe(fe& f, const int32_t* src) {
 #pragma unroll
   for (int i = 0; i < 10; i++) f.v[i] = src[i];
+}
+
+// -- inversion by a binary GCD -------------------------------------------------
+//
+// Bernstein and Yang's safegcd for p = 2^255 - 19, as fp381.cuh's
+// fp_inv_gcd is for the BLS field: batches of 30 divsteps on the low 32
+// bits of f and g (divsteps.cuh), each batch's 2x2 matrix then applied to
+// the full f, g and to the cofactors d, e mod p, all as 9 signed limbs of
+// 30 bits (270 bits: the division by 2^30 is a shift by one limb). Started
+// from f = p, g = y, d = 0, e = 1, the invariants d y = f, e y = g (mod p)
+// end, when g = 0, with f = +-1 and d = +-1 / y. No Montgomery factor: the
+// ed25519 limbs have none. 0 maps to 0 (g = 0 from the start leaves d = 0),
+// as fe_invert and the plain field.invert map it. y comes in through
+// fe_canonical, so non-canonical limbs (y >= p, limbs over their width)
+// are taken mod p; the inverse goes out canonical.
+//
+// The loop runs in variable time (divsteps30) until g = 0: a point's
+// encoding is public (a function of the key, the message and the
+// signature). safegcd's bound for the original divstep, floor((49 * 255 +
+// 80) / 17) = 739 divsteps, caps it at 25 batches.
+
+constexpr int FL = 9;                      // 30-bit limbs of the GCD's values
+constexpr uint32_t kPinv30 = 0x179435e5u;  // p^-1 mod 2^30
+
+// Limb i of p in 30-bit limbs: 2^30 - 19, seven 2^30 - 1, then 2^15 - 1.
+TM_FN int32_t fe_p30(int i) { return i == 0 ? M30 - 18 : (i == FL - 1 ? 0x7fff : M30); }
+
+// A canonical value (fe_canonical's limbs) -> 9 x 30-bit limbs.
+TM_FN void fe_to_limbs30(int32_t* r, const fe& h) {
+  uint64_t acc = 0;
+  int nbits = 0, j = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    acc |= (uint64_t)(uint32_t)h.v[i] << nbits;
+    nbits += fe_width(i);
+    if (nbits >= 30) {
+      r[j++] = (int32_t)(acc & M30);
+      acc >>= 30;
+      nbits -= 30;
+    }
+  }
+  r[FL - 1] = (int32_t)acc;  // the top 15 bits
+}
+
+// 9 x 30-bit limbs of a value in [0, 2^255) -> canonical limbs.
+TM_FN void fe_from_limbs30(fe& h, const int32_t* r) {
+  uint64_t acc = 0;
+  int nbits = 0, j = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const int w = fe_width(i);
+    if (nbits < w) {
+      acc |= (uint64_t)(uint32_t)r[j++] << nbits;
+      nbits += 30;
+    }
+    h.v[i] = (int32_t)(acc & ((1u << w) - 1));
+    acc >>= w;
+    nbits -= w;
+  }
+}
+
+// [f, g] <- t [f, g] / 2^30 (exact): limbs 0..7 in [0, 2^30), 8 signed.
+TM_FN void fe_gcd_update_fg(int32_t* f, int32_t* g, const int32_t* t) {
+  int64_t cf = ((int64_t)t[0] * f[0] + (int64_t)t[1] * g[0]) >> 30;
+  int64_t cg = ((int64_t)t[2] * f[0] + (int64_t)t[3] * g[0]) >> 30;
+#pragma unroll
+  for (int i = 1; i < FL; ++i) {
+    const int32_t fi = f[i], gi = g[i];
+    cf += (int64_t)t[0] * fi + (int64_t)t[1] * gi;
+    cg += (int64_t)t[2] * fi + (int64_t)t[3] * gi;
+    f[i - 1] = (int32_t)cf & M30;
+    cf >>= 30;
+    g[i - 1] = (int32_t)cg & M30;
+    cg >>= 30;
+  }
+  f[FL - 1] = (int32_t)cf;
+  g[FL - 1] = (int32_t)cg;
+}
+
+// [d, e] <- (t [d, e] + p [md, me]) / 2^30 for d, e in (-2p, p), md and me
+// chosen to clear the low 30 bits; the results stay in (-2p, p).
+TM_FN void fe_gcd_update_de(int32_t* d, int32_t* e, const int32_t* t) {
+  const int32_t sd = d[FL - 1] >> 31, se = e[FL - 1] >> 31;
+  int32_t md = (t[0] & sd) + (t[1] & se);
+  int32_t me = (t[2] & sd) + (t[3] & se);
+  int64_t cd = (int64_t)t[0] * d[0] + (int64_t)t[1] * e[0];
+  int64_t ce = (int64_t)t[2] * d[0] + (int64_t)t[3] * e[0];
+  md -= (int32_t)((kPinv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)M30);
+  me -= (int32_t)((kPinv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)M30);
+  cd = (cd + (int64_t)fe_p30(0) * md) >> 30;
+  ce = (ce + (int64_t)fe_p30(0) * me) >> 30;
+#pragma unroll
+  for (int i = 1; i < FL; ++i) {
+    const int32_t di = d[i], ei = e[i];
+    cd += (int64_t)t[0] * di + (int64_t)t[1] * ei + (int64_t)fe_p30(i) * md;
+    ce += (int64_t)t[2] * di + (int64_t)t[3] * ei + (int64_t)fe_p30(i) * me;
+    d[i - 1] = (int32_t)cd & M30;
+    cd >>= 30;
+    e[i - 1] = (int32_t)ce & M30;
+    ce >>= 30;
+  }
+  d[FL - 1] = (int32_t)cd;
+  e[FL - 1] = (int32_t)ce;
+}
+
+// d in (-2p, p), negated when sign < 0, into [0, p).
+TM_FN void fe_gcd_normalize(int32_t* d, int32_t sign) {
+  int32_t c = d[FL - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < FL; ++i) d[i] += fe_p30(i) & c;
+  c = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < FL; ++i) d[i] = (d[i] ^ c) - c;
+#pragma unroll
+  for (int i = 0; i < FL - 1; ++i) {
+    d[i + 1] += d[i] >> 30;
+    d[i] &= M30;
+  }
+  c = d[FL - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < FL; ++i) d[i] += fe_p30(i) & c;
+#pragma unroll
+  for (int i = 0; i < FL - 1; ++i) {
+    d[i + 1] += d[i] >> 30;
+    d[i] &= M30;
+  }
+}
+
+// out = 1 / z, canonical; 0 -> 0. Returns the batches run.
+TM_CALL int fe_inv_gcd(fe& out, const fe& z) {
+  fe c;
+  fe_canonical(c, z);
+  int32_t d[FL], e[FL], f[FL], g[FL], t[4];
+  fe_to_limbs30(g, c);
+#pragma unroll
+  for (int i = 0; i < FL; ++i) {
+    f[i] = fe_p30(i);
+    d[i] = 0;
+    e[i] = i == 0;
+  }
+  int32_t eta = -1;
+  int steps = 0;
+#pragma unroll 1
+  for (;;) {
+    int32_t any = 0;
+#pragma unroll
+    for (int i = 0; i < FL; ++i) any |= g[i];
+    if (any == 0) break;
+    ++steps;
+    eta = divsteps30(eta, (uint32_t)f[0], (uint32_t)g[0], t);
+    fe_gcd_update_de(d, e, t);
+    fe_gcd_update_fg(f, g, t);
+  }
+  // f = +-1 unless z = 0 (then f = p and d = 0)
+  fe_gcd_normalize(d, f[FL - 1]);
+  fe_from_limbs30(out, d);
+  return steps;
 }

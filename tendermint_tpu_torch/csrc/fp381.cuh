@@ -34,6 +34,8 @@
 #pragma once
 #include <stdint.h>
 
+#include "divsteps.cuh"
+
 #if defined(__CUDACC__)
 #define BLS_FN static __device__ __forceinline__
 #define BLS_NOINLINE static __device__ __noinline__
@@ -364,16 +366,6 @@ BLS_FN void fp_sqrt_cand(Fp& r, const Fp& a) { fp_pow(r, a, c_bls.e_sqrt, 32 * N
 // to 0: g = 0 ends the loop at once with d = 0.
 
 constexpr int GL = 13;  // 30-bit limbs of the GCD's values (390 bits)
-constexpr int32_t M30 = (int32_t)((1u << 30) - 1);
-
-// Trailing zeros of x != 0.
-BLS_FN int ctz32(uint32_t x) {
-#if defined(__CUDA_ARCH__)
-  return __ffs((int)x) - 1;
-#else
-  return __builtin_ctz(x);
-#endif
-}
 
 // 12 x 32-bit limbs -> 13 x 30-bit limbs (a value below 2^384).
 BLS_FN void to_limbs30(int32_t* r, const uint32_t* a) {
@@ -396,51 +388,6 @@ BLS_FN void from_limbs30(uint32_t* r, const int32_t* a) {
     if (i + 2 < GL) x |= (uint64_t)(uint32_t)a[i + 2] << (60 - off);
     r[j] = (uint32_t)x;
   }
-}
-
-// 30 divsteps from eta and the low bits of f (odd) and g: the matrix
-// t = (u, v, q, r), [f', g'] = t [f, g] / 2^30; returns the new eta
-// (= -delta).
-BLS_FN int32_t divsteps30(int32_t eta, uint32_t f, uint32_t g, int32_t* t) {
-  uint32_t u = 1, v = 0, q = 0, r = 1;
-  int i = 30;
-  for (;;) {
-    // the even steps at once (a sentinel bit stops the count at i)
-    const int zeros = ctz32(g | (0xffffffffu << i));
-    g >>= zeros;
-    u <<= zeros;
-    v <<= zeros;
-    eta -= zeros;
-    i -= zeros;
-    if (i == 0) break;
-    // g odd: with eta < 0, (eta, f, g) <- (-eta, g, -f)
-    if (eta < 0) {
-      uint32_t tmp = f;
-      eta = -eta;
-      f = g;
-      g = 0u - tmp;
-      tmp = u;
-      u = q;
-      q = 0u - tmp;
-      tmp = v;
-      v = r;
-      r = 0u - tmp;
-    }
-    // cancel up to min(eta + 1, i, 8) low bits of g by w f, w = -g / f
-    const int limit = eta + 1 > i ? i : eta + 1;
-    const uint32_t m = (0xffffffffu >> (32 - limit)) & 255u;
-    uint32_t fi = f * (2u - f * f);  // 1 / f mod 2^6, then mod 2^12
-    fi *= 2u - f * fi;
-    const uint32_t w = (g * (0u - fi)) & m;
-    g += f * w;
-    q += u * w;
-    r += v * w;
-  }
-  t[0] = (int32_t)u;
-  t[1] = (int32_t)v;
-  t[2] = (int32_t)q;
-  t[3] = (int32_t)r;
-  return eta;
 }
 
 // [f, g] <- t [f, g] / 2^30 (exact): limbs 0..11 in [0, 2^30), 12 signed.

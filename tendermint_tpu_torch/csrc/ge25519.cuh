@@ -124,10 +124,10 @@ TM_FN void ge_precomp_fix(ge_precomp& c, int digit) {
   }
 }
 
-// y with the sign of x in bit 255; one inversion
+// y with the sign of x in bit 255; one inversion, by a binary GCD
 TM_FN void ge_encode(uint8_t s[32], const ge_p3& p) {
   fe zi, x, y;
-  fe_invert(zi, p.Z);
+  fe_inv_gcd(zi, p.Z);
   fe_mul(x, p.X, zi);
   fe_mul(y, p.Y, zi);
   fe_tobytes(s, y);

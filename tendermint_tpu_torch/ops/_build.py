@@ -33,8 +33,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("ed25519_kernels.cu", "ed25519_tabled.cu", "sha256_kernels.cu", "bls12_kernels.cu", "bindings.cu")
-HEADERS = ("fe25519.cuh", "ge25519.cuh", "ge25519_lanes.cuh", "lanes.cuh", "sc25519.cuh", "sha512.cuh", "sha256.cuh",
-           "fp381.cuh", "bls12_curve.cuh")
+HEADERS = ("fe25519.cuh", "divsteps.cuh", "ge25519.cuh", "ge25519_lanes.cuh", "lanes.cuh", "sc25519.cuh", "sha512.cuh",
+           "sha256.cuh", "fp381.cuh", "bls12_curve.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -42,10 +42,13 @@ class HostEd25519:
         lib.ed_host_scan_row.restype = None
         lib.ed_host_build_row.argtypes = [vp, vp, i32]
         lib.ed_host_set_comb.argtypes = [vp, ctypes.c_size_t]
+        lib.ed_host_decompress.argtypes = [vp, vp]
+        lib.ed_host_invert.argtypes = [vp, vp, i32]
+        lib.ed_host_finish_row.argtypes = [vp, vp, i32, i32, vp]
         lib.ed_host_scan_tabled_row.argtypes = [vp, vp, vp, vp, i32]
         lib.ed_host_scan_tabled_row.restype = None
         for fn in (lib.ed_host_set_constants, lib.ed_host_fe_op, lib.ed_host_point_op, lib.ed_host_build_row,
-                   lib.ed_host_set_comb):
+                   lib.ed_host_set_comb, lib.ed_host_decompress, lib.ed_host_invert, lib.ed_host_finish_row):
             fn.restype = i32
         blob = constants_blob()
         if lib.ed_host_set_constants(blob, len(blob)) != 0:
@@ -63,6 +66,29 @@ class HostEd25519:
         if self.lib.ed_host_fe_op(op, x.ctypes.data, y.ctypes.data, r.ctypes.data) != 0:
             raise ValueError(f"no field op {op}")
         return r
+
+    def decompress(self, pk: bytes):
+        """ed25519_prepare's decompression: (-A (4, 10) int32, a_ok)."""
+        out = np.zeros((4, 10), dtype=np.int32)
+        ok = self.lib.ed_host_decompress(out.ctypes.data, bytes(pk))
+        return out, bool(ok)
+
+    def invert(self, a, gcd: bool = True):
+        """(1 / a as 10 canonical int32 limbs, the batches run): by the
+        binary GCD (fe_inv_gcd), or with gcd=False by Fermat's power
+        (fe_invert, 0 batches)."""
+        x = np.ascontiguousarray(a, dtype=np.int32)
+        r = np.zeros(10, dtype=np.int32)
+        steps = self.lib.ed_host_invert(x.ctypes.data, r.ctypes.data, int(gcd))
+        return r, steps
+
+    def finish_row(self, point, r: bytes, a_ok: bool, s_ok: bool):
+        """One ed25519_finish row: point (4, 10) int32, R (32 B) -> (ok,
+        the point's 32-byte encoding)."""
+        pt = np.ascontiguousarray(point, dtype=np.int32)
+        enc = np.zeros(32, dtype=np.uint8)
+        ok = self.lib.ed_host_finish_row(pt.ctypes.data, bytes(r), int(a_ok), int(s_ok), enc.ctypes.data)
+        return bool(ok), enc
 
     def point_op(self, op: int, p, q=None, digit: int = 1, want_t: bool = True, lanes: int = 4) -> np.ndarray:
         """op 0: the staged doubling of p, 1: the staged cached addition

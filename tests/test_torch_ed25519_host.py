@@ -8,10 +8,11 @@ row's lanes in turn over each stage. So a row here computes what a row
 of ed25519_scan (G = 2, 4, 8) or a validator of ed25519_build_tables
 (G = 2, 4, 8, 16) computes on the card. Values are compared mod p (the
 limbs of two versions may differ for the same value); the squaring is
-compared limb for limb with the product it replaces. The library is
-built once for the module into a temporary directory; the JAX programs
-run once for the module, the scan eagerly and the table build jitted
-(the faster of the two for each, on this CPU).
+compared limb for limb with the product it replaces, the binary GCD's
+inverse with Fermat's. The library is built once for the module into
+a temporary directory; the JAX programs run once for the module, the
+scan, the decompression and the finish eagerly and the table build
+jitted (the faster of the two for each, on this CPU).
 """
 
 import shutil
@@ -28,6 +29,8 @@ from tendermint_tpu_torch.ops import curve
 from tendermint_tpu_torch.ops import ed25519 as ted
 from tendermint_tpu_torch.ops import field as F
 from tendermint_tpu_torch.ops.ed25519_host import HostEd25519
+from tendermint_tpu.ops import curve as jcurve
+from tendermint_tpu_torch.ops import ref_ed25519 as ref
 from tests.torch_port_helpers import adversarial_rows, stack
 
 P = F.P
@@ -208,3 +211,119 @@ def test_scan_tabled_row_matches_plain(host, tabled_batch, lanes, case):
     np.testing.assert_array_equal(_values(got), _values(want.numpy()))
     assert not bool(want_ok[5]) and not bool(want_ok[13])  # the undecodable key's rows
     np.testing.assert_array_equal(host.scan_tabled_row(sd8[0].numpy(), kd[0].numpy(), None, lanes), 0)
+
+
+# -- ed25519_prepare's decompression -------------------------------------------
+
+
+def _undecodable(n, seed):
+    r = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        pk = r.bytes(32)
+        if ref.pt_decode(pk) is None:
+            out.append(pk)
+    return out
+
+
+DECOMPRESS_CASES = {
+    "valid": [ref.pubkey_from_seed(bytes([i]) * 32) for i in (1, 2, 3)],
+    "undecodable": _undecodable(3, 20261020),
+    # y >= p: p + 1, p + 2 with the sign bit, 2^255 - 1 (y = 18 mod p)
+    "y_at_least_p": [(P + 1).to_bytes(32, "little"), ((P + 2) | (1 << 255)).to_bytes(32, "little"),
+                     (2**255 - 1).to_bytes(32, "little")],
+    # x = 0 with the sign set: y = 1, y = -1, y = p + 1
+    "x_zero_sign_set": [(1 | (1 << 255)).to_bytes(32, "little"), ((P - 1) | (1 << 255)).to_bytes(32, "little"),
+                        ((P + 1) | (1 << 255)).to_bytes(32, "little")],
+}
+
+
+@pytest.fixture(scope="module")
+def decompress_want():
+    """Every case's keys decompressed and negated as (values (N, 4),
+    a_ok): the plain curve.decompress's and the JAX package's (eager)."""
+    keys = [k for case in sorted(DECOMPRESS_CASES) for k in DECOMPRESS_CASES[case]]
+    pk = torch.from_numpy(np.frombuffer(b"".join(keys), dtype=np.uint8).reshape(-1, 32).copy())
+    a, ok = curve.decompress(pk)
+    plain = _values(torch.stack(list(curve.negate(a)), dim=1).numpy())
+    ja, jok = jcurve.decompress(jnp.asarray(pk.numpy()))
+    jvals = np.stack([_jax_values(c) for c in (ja.x, ja.y, ja.z, ja.t)], axis=1)
+    jneg = np.stack([(P - jvals[:, 0]) % P, jvals[:, 1], jvals[:, 2], (P - jvals[:, 3]) % P], axis=1)
+    return dict(zip(keys, zip(plain, ok.numpy(), jneg, np.asarray(jok))))
+
+
+@pytest.mark.parametrize("case", sorted(DECOMPRESS_CASES))
+def test_decompression_matches_plain_and_jax(host, decompress_want, case):
+    """ed25519_prepare's decompression gives -A and a_ok as the plain
+    curve.decompress and the JAX package's do, the garbage point of an
+    undecodable key included."""
+    for pk in DECOMPRESS_CASES[case]:
+        neg_a, ok = host.decompress(pk)
+        plain, plain_ok, jax_vals, jax_ok = decompress_want[pk]
+        np.testing.assert_array_equal(_values(neg_a), plain)
+        np.testing.assert_array_equal(_values(neg_a), jax_vals)
+        assert ok == bool(plain_ok) == bool(jax_ok)
+        assert ok == (ref.pt_decode(pk) is not None)
+
+
+# -- ed25519_finish's inversion and row -------------------------------------------
+
+GCD_BATCHES = -(-((49 * 255 + 80) // 17) // 30)  # safegcd's bound for 255 bits: 739 divsteps, 25 batches
+INVERT_CASES = {
+    # 0, 1, 2, p - 1, and p, p + 1, 2^255 - 1 in non-canonical limbs
+    "edges": [_raw_limbs(x) for x in (0, 1, 2, P - 1, P, P + 1, 2**255 - 1)],
+    "powers_of_two": [_raw_limbs(2**k) for k in range(0, 255, 7)],
+    "over_width": [np.full(10, BOUND, dtype=np.int32), np.full(10, -BOUND, dtype=np.int32)]
+    + [rng.integers(-BOUND, BOUND + 1, 10).astype(np.int32) for _ in range(100)],
+    "random": [np.array(F.to_limbs(int.from_bytes(rng.bytes(32), "little") % P), dtype=np.int32)
+               for _ in range(100)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(INVERT_CASES))
+def test_fe_inv_gcd_matches_fermat(host, case):
+    """fe_inv_gcd: 1 / a as fe_invert's value and pow(a, p - 2, p), in
+    canonical limbs, 0 -> 0 with no batch run; the batches within
+    safegcd's bound."""
+    for a in INVERT_CASES[case]:
+        got, steps = host.invert(a)
+        fermat, _ = host.invert(a, gcd=False)
+        assert _value(got) == _value(fermat) == pow(_value(a), P - 2, P), a.tolist()
+        assert all(0 <= v < (1 << w) for v, w in zip(got.tolist(), F.WIDTHS))
+        assert (steps == 0) == (_value(a) == 0)
+        assert steps <= GCD_BATCHES
+
+
+@pytest.fixture(scope="module")
+def finish_batch():
+    """The adversarial rows through the plain prepare and scan, with a row
+    whose Z is 0 added; finish_plain's verdicts and encodings, and the
+    JAX package's verify_stage_finish (eager) on the same points."""
+    rows, _ = adversarial_rows(seed=20261021)
+    pk, msg, sig = (torch.from_numpy(stack(rows, k)) for k in range(3))
+    _sd, _kd, _neg_a, a_ok, s_ok = prep = ted.prepare_plain(pk, msg, sig)
+    point = ted.scan_plain(*prep[:3])
+    point = torch.cat([point, point[:1]])
+    point[-1, 2] = 0
+    sig = torch.cat([sig, sig[:1]])
+    a_ok, s_ok = torch.cat([a_ok, a_ok[:1]]), torch.cat([s_ok, s_ok[:1]])
+    ok = ted.finish_plain(point, sig, a_ok, s_ok)
+    enc = curve.encode(curve.Point(*(point[:, i].to(torch.int64) for i in range(4))))
+    coords = [jnp.asarray(np.array([jfield.to_limbs(v) for v in _values(point[:, i].numpy())])) for i in range(4)]
+    jok = jed.verify_stage_finish(*coords, jnp.asarray(sig.numpy()), jnp.asarray(a_ok.numpy()),
+                                  jnp.asarray(s_ok.numpy()))
+    return point.numpy(), sig.numpy(), a_ok.numpy(), s_ok.numpy(), ok.numpy(), enc.numpy(), np.asarray(jok)
+
+
+def test_finish_row_matches_plain_and_jax(host, finish_batch):
+    """One ed25519_finish row, the encoding's inversion by the binary GCD:
+    the encoding is curve.encode's, the verdict finish_plain's and the JAX
+    package's verify_stage_finish's, for the adversarial rows and a row
+    whose Z is 0 (encoded as (0, 0): 1 / 0 is 0)."""
+    point, sig, a_ok, s_ok, want_ok, want_enc, jax_ok = finish_batch
+    got = [host.finish_row(point[r], sig[r, :32].tobytes(), a_ok[r], s_ok[r]) for r in range(len(point))]
+    np.testing.assert_array_equal(np.stack([e for _, e in got]), want_enc)
+    np.testing.assert_array_equal([o for o, _ in got], want_ok)
+    np.testing.assert_array_equal([o for o, _ in got], jax_ok)
+    assert want_ok.any() and not want_ok.all()
+    assert not got[-1][0] and not got[-1][1].any()
