@@ -50,26 +50,34 @@ Phases (any failure raises and ends the run with a nonzero exit):
    the set (row r is validator r, a message matrix); the tabled scan also
    on a batch whose rows are not a multiple of a block's, with indices
    out of range in the last group of a warp and in the last row (zeros
-   and a_ok 0). Timing as in 4. The lane group G that ed25519_scan,
+   and a_ok 0). ed25519_prepare_tabled also at verify_commit_trusting's
+   4,737 rows (the second set's keys and templates), and with key and
+   template indices out of range in a block's first, last and middle
+   rows (zeros and s_ok 0). Timing as in 4, the
+   tabled prepare also at 4,737 rows. The lane group G that ed25519_scan,
    ed25519_build_tables and ed25519_scan_tabled were compiled with (the
    other G are timed by scripts/ed25519_lane_sweep.py), and those three
-   kernels' and ed25519_prepare's and ed25519_finish's registers, spill
-   stores and loads and stack frame.
-6. The merkle kernels (sha256_leaf_blocks, merkle_inner_level) against
-   their plain versions, exactly at the (8, N) state seams, with every
-   level on the card: on the 10,000 validators' leaves, on the
-   10,000-signature commit's ragged leaves (95 and 11 bytes), and on an
-   adversarial set (m in 2, 3, 5, 127-129, 1023-1025 leaves with the
-   empty leaf, 54- and 55-byte leaves at the one/two-block edge and a
-   40-block leaf; sha256 of 55- and 56-byte messages). Roots and every
-   proof's aunts against a hashlib recursion of simple_tree.go. 1,023
-   leaves of 32 B and one of 1 MiB: the flat leaf buffer holds about the
-   leaves' bytes (the dense layout would pad all to 16,385 blocks), root
-   and aunts against hashlib with every level on the card.
+   kernels' and ed25519_prepare's, ed25519_prepare_tabled's and
+   ed25519_finish's registers, spill stores and loads and stack frame,
+   and the tabled prepare's local-memory instructions in its SASS.
+6. The merkle kernels (sha256_leaf_blocks, merkle_tree) against their
+   plain versions, exactly at the (8, N) state seams, every level of the
+   tree (levels=True) and the root alone: on the 10,000 validators'
+   leaves, on the 10,000-signature commit's ragged leaves (95 and 11
+   bytes), on an adversarial set (m in 2, 3, 5, 127-129, 1023-1025
+   leaves with the empty leaf, 54- and 55-byte leaves at the one/two-block
+   edge and a 40-block leaf; sha256 of 55- and 56-byte messages), on
+   100,001 such leaves, and on 1,000,000 random leaf states (more chunk
+   roots than a block's chunk: the top loops in global memory). Roots
+   and every proof's aunts against a hashlib recursion of simple_tree.go.
+   1,023 leaves of 32 B and one of 1 MiB: the flat leaf buffer holds
+   about the leaves' bytes (the dense layout would pad all to 16,385
+   blocks), root and aunts against hashlib on the card.
    ValidatorSet.hash() and Commit.hash() at 10,000: the counts set to 0
-   just before and read just after (one leaf launch, seven inner ones:
-   widths 5,000 down to 79), CUDA events p50/p99 of 30 calls on fresh
-   objects, the host clock split, and hashlib alone beside it.
+   just before and read just after (one leaf launch, one tree launch),
+   CUDA events p50/p99 of 30 calls on fresh objects, the host clock
+   split, and hashlib alone beside it; merkle_tree's registers, stack
+   frame and SASS.
 7. The light client at 10,000 validators: a trusted header h1, h2
    adjacent under the set S of phases 3-5, h4 two heights on under S'
    (S with three validators replaced), both signed here. verify(h1 ->
@@ -123,7 +131,9 @@ Phases (any failure raises and ends the run with a nonzero exit):
    10,000 on the tabled path (a routed TorchBatchVerifier set as the
    default provider) and on the generic path (9,510 rows),
    verify_commit_trusting, BLSEngine.verify_rows on phase 8's pairing
-   rows, MerkleHasher.root of the 10,000 validator leaves. The same calls
+   rows, MerkleHasher.root of the 10,000 validator leaves (and
+   merkle_tree on the routed leaf states against its plain version, every
+   level). The same calls
    over two placed lanes of cuda:0 (MeshRouter(DeviceTopology([cuda:0] *
    2))), and over the real devices (up to 4) when there are several:
    verdicts, tallies, roots and errors identical to the unrouted calls
@@ -200,6 +210,18 @@ BATCH_INV_MULS_PER_ROW = 3
 # at the multiply-add's rate (64 a clock per SM): counted as 2
 # operations each, like a multiply-add.
 OPS_PER_SHA512_BLOCK = 2 * 2 * (80 * 23 + 64 * 13)
+# The tabled prepare's scalar work a row, in 32-bit instructions at the
+# same rate, 2 operations each. sc_reduce (csrc/sc25519.cuh): the digest's
+# eight words byte-swapped (2 each) and cut into 24 21-bit limbs (3 each),
+# 14 folds of six limb products (an int64 product by a constant and its
+# accumulation, 2 each), 46 carries (a 64-bit bias, shift, add and
+# subtract: 8 each), the 12 limbs packed into four words (3 each): 660.
+# s < L: four 64-bit compares (4 each): 16. The digits: 64 nibbles of k
+# and 32 bytes of s, each extracted, its carry added, compared, reduced
+# and packed (5 each): 480. The message words' shared reads and byte
+# swaps are not counted (nor are the SHA-256 kernels' byte swaps).
+SC_REDUCE_INSTR = 8 * 2 + 24 * 3 + 14 * 6 * 2 + 46 * 8 + 12 * 3
+PREPARE_TABLED_SCALAR_INSTR = SC_REDUCE_INSTR + 4 * 4 + (64 + 32) * 5
 # SHA-256 on its native 32-bit words, counted in the instructions sm_90a
 # needs for it, each at the same table's 32-bit integer rate (64 a clock
 # per SM for the 3-input LOP3 and IADD3 and the funnel shift SHF alike)
@@ -237,6 +259,29 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# A warp issues a 32-bit integer instruction at best every second cycle
+# (16 INT32 lanes a scheduler, the 64 a clock per SM above), so one
+# thread's chain of n such instructions takes at least 2 n cycles however
+# idle the card is: the floor of a kernel whose rows or levels are
+# sequential chains at under one warp a scheduler.
+CYCLES_PER_WARP_INT32_INSTR = 2
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def chain_floor_ms(instructions: int) -> float:
+    """The least time of one thread's chain of `instructions` 32-bit
+    integer instructions at the card's maximum SM clock."""
+    return 1e3 * CYCLES_PER_WARP_INT32_INSTR * instructions / sm_clock_hz()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -474,6 +519,39 @@ def compare_tabled(ed, field, tables, a_ok, pk_all, sig, src):
     ok = ed.verify_stage_finish(point, sig, row_ok, prep[2])
     torch.cuda.synchronize()
     return {"ed25519_prepare_tabled": err_prep, "ed25519_scan_tabled": err_scan}, ok
+
+
+def prepare_tabled_err(ed, pk_all, sig, src) -> int:
+    """ed25519_prepare_tabled against its plain version on the same
+    inputs: the largest difference at its seams (sd8, kd, s_ok)."""
+    got = ed.verify_stage_prepare_tabled(pk_all, sig, **src)
+    want = ed.prepare_tabled_plain(pk_all, sig, **src)
+    torch.cuda.synchronize()
+    return max(seam_err(a, b) for a, b in zip(got, want))
+
+
+def prepare_tabled_edges_err(ed, pk_all, sig, src) -> int:
+    """ed25519_prepare_tabled on the main path's templated inputs with
+    rows whose key index (the first and last of a block of 64, the first
+    of the next) or template index (a middle and the last row) is out of
+    range: those must come out zeros with s_ok 0, the others equal to the
+    plain version. Returns the largest difference. (The timestamp at
+    every byte offset mod 8: scripts/prepare_tree_sweep.py on the card,
+    tests/test_torch_prepare_tabled_host.py on the host build.)"""
+    n, dev = sig.shape[0], sig.device
+    bad = torch.tensor([0, 63, 64, n // 2, n - 1], device=dev)
+    idx, tmpl = src["idx"].clone(), src["tmpl_idx"].clone()
+    v, ntpl = pk_all.shape[0], src["templates"].shape[0]
+    idx[bad[:3]] = torch.tensor([-1, v, v + 7], dtype=torch.int32, device=dev)
+    tmpl[bad[3:]] = torch.tensor([ntpl, -1], dtype=torch.int32, device=dev)
+    got = ed.verify_stage_prepare_tabled(pk_all, sig, **dict(src, idx=idx, tmpl_idx=tmpl))
+    good = torch.ones(n, dtype=torch.bool, device=dev)
+    good[bad] = False
+    want = ed.prepare_tabled_plain(pk_all, sig[good], idx=idx[good], templates=src["templates"],
+                                   tmpl_idx=tmpl[good], ts8=src["ts8"][good])
+    torch.cuda.synchronize()
+    return max([seam_err(a[good], b) for a, b in zip(got, want)]
+               + [int(a[bad].to(torch.int64).abs().max().item()) for a in got])
 
 
 def negative_cases(vs, commit, bid, provider, bad_pos: int = 5, quiet: bool = False) -> list:
@@ -723,18 +801,26 @@ def host_tree(items):
 
 
 def merkle_seams(sha, hasher, items):
-    """Both kernels of one tree against their plain versions, every level
-    on the card: (leaf seam error, inner seam error, root)."""
+    """Both kernels of one tree against their plain versions on the card:
+    (leaf seam error, tree seam error over every level and the root
+    alone, root)."""
     b, o, c = (torch.from_numpy(a).cuda() for a in hasher.MerkleHasher().pack(items))
     st = sha.leaf_block_states(b, c, o)
     e_leaf = seam_err(st, sha.leaf_blocks_plain(b, c, o))
-    e_inner, m = 0, len(items)
-    while m > 1:
-        nxt = sha.merkle_inner_level(st, m)
-        e_inner = max(e_inner, seam_err(nxt, sha.inner_level_plain(st, m)))
-        st, m = nxt, (m + 1) // 2
+    return (e_leaf, *tree_seams(sha, st))
+
+
+def tree_seams(sha, st):
+    """merkle_tree on the (8, n) leaf states `st` against
+    merkle_tree_plain, every level (levels=True) and the root alone:
+    (largest seam difference, root)."""
+    n = st.shape[1]
+    flat = sha.merkle_tree(st, n, levels=True)
+    root = sha.merkle_tree(st, n)
+    err = max(seam_err(flat, sha.merkle_tree_plain(st, n, levels=True)), seam_err(root, flat[:, -1:]),
+              seam_err(root, sha.merkle_tree_plain(st, n)))
     torch.cuda.synchronize()
-    return e_leaf, e_inner, sha.state_to_digests(st.cpu().numpy())[0].tobytes()
+    return err, sha.state_to_digests(root.cpu().numpy())[0].tobytes()
 
 
 def check_proofs(merkle, items, what: str) -> None:
@@ -788,9 +874,9 @@ def events_and_wall(fn, make, reps: int):
 
 def root_split(sha, merkle, hasher, leaves_of, obj_of, reps: int = 10):
     """The host clock split of a root at 10,000 leaves: the leaves'
-    encodings, packing, upload with the kernels and the tail's download,
-    the host finish; and the same root by hashlib alone."""
-    parts = {"encode": [], "pack": [], "upload_kernels_download": [], "host_finish": [], "hashlib_alone": []}
+    encodings, packing, the upload with the two launches and the root's
+    32-byte download; and the same root by hashlib alone."""
+    parts = {"encode": [], "pack": [], "upload_kernels_download": [], "hashlib_alone": []}
     h = hasher.MerkleHasher()
     for _ in range(reps):
         obj = obj_of()
@@ -799,28 +885,27 @@ def root_split(sha, merkle, hasher, leaves_of, obj_of, reps: int = 10):
         t1 = time.perf_counter()
         packed = h.pack(leaves)
         t2 = time.perf_counter()
-        tail = sha.state_to_digests(h.device_levels(*packed)[-1].cpu().numpy())
+        st = h.leaf_states(*packed)
+        root = sha.state_to_digests(sha.merkle_tree(st, st.shape[1]).cpu().numpy())[0].tobytes()
         t3 = time.perf_counter()
-        top = hasher.host_levels([tail[i].tobytes() for i in range(tail.shape[0])])
-        t4 = time.perf_counter()
         saved = merkle.DEVICE_THRESHOLD
         merkle.DEVICE_THRESHOLD = len(leaves) + 1
         try:
             alone = merkle.hash_from_byte_slices(leaves)
         finally:
             merkle.DEVICE_THRESHOLD = saved
-        t5 = time.perf_counter()
-        require(top[-1][0] == alone, "the split's root equals hashlib's")
-        for key, dt in zip(parts, (t1 - t, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+        t4 = time.perf_counter()
+        require(root == alone, "the split's root equals hashlib's")
+        for key, dt in zip(parts, (t1 - t, t2 - t1, t3 - t2, t4 - t3)):
             parts[key].append(1e3 * dt)
     return {key: float(np.median(v)) for key, v in parts.items()}
 
 
-def inner_bound(widths):
-    """(bytes, operations) of the inner levels of one tree: each level
-    read once and the next written once; two compressions a pair."""
-    io = sum(32 * w + 32 * ((w + 1) // 2) for w in widths)
-    return io, sum(w // 2 for w in widths) * 2 * SHA256_INNER_NODE_INSTR
+def tree_bound(n: int):
+    """(bytes, operations) of merkle_tree's root of n leaves: the leaf
+    states read once and the root written once; its n - 1 inner nodes of
+    two compressions."""
+    return 32 * n + 32, (n - 1) * 2 * SHA256_INNER_NODE_INSTR
 
 
 def phase6(vs, commit, card):
@@ -832,19 +917,19 @@ def phase6(vs, commit, card):
 
     rng = np.random.default_rng(SEED + 6)
     t0 = time.perf_counter()
-    errs = {"sha256_leaf_blocks": {}, "merkle_inner_level": {}}
-    saved = merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH
-    merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH = 2, 1
+    errs = {"sha256_leaf_blocks": {}, "merkle_tree": {}}
+    saved = merkle.DEVICE_THRESHOLD
+    merkle.DEVICE_THRESHOLD = 2
     try:
-        adv_leaf = adv_inner = 0
+        adv_leaf = adv_tree = 0
         for m in MERKLE_M:
             items = adversarial_leaves(rng, m)
-            e_leaf, e_inner, root = merkle_seams(sha, hasher, items)
-            adv_leaf, adv_inner = max(adv_leaf, e_leaf), max(adv_inner, e_inner)
+            e_leaf, e_tree, root = merkle_seams(sha, hasher, items)
+            adv_leaf, adv_tree = max(adv_leaf, e_leaf), max(adv_tree, e_tree)
             require(root == host_root(items), f"{m} adversarial leaves: the kernels' root equals hashlib's")
-            check_proofs(merkle, items, f"{m} adversarial leaves, every level on the card")
+            check_proofs(merkle, items, f"{m} adversarial leaves, every tree on the card")
     finally:
-        merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH = saved
+        merkle.DEVICE_THRESHOLD = saved
     for length in (55, 56):
         msgs = rng.integers(0, 256, (257, length), dtype=np.uint8)
         dev = torch.from_numpy(msgs).cuda()
@@ -855,10 +940,34 @@ def phase6(vs, commit, card):
         counts = torch.full((257,), blocks.shape[1], dtype=torch.int32, device=blocks.device)
         flat = sha.dense_to_flat(blocks, counts)
         adv_leaf = max(adv_leaf, seam_err(sha.leaf_block_states(*flat), sha.leaf_blocks_plain(*flat)))
-    errs["sha256_leaf_blocks"]["adversarial"], errs["merkle_inner_level"]["adversarial"] = adv_leaf, adv_inner
-    print(f"phase 6: adversarial trees m = {MERKLE_M} (empty, 54-, 55-byte and 40-block leaves), every level on "
-          f"the card: seams identical to the plain versions (leaf {adv_leaf}, inner {adv_inner}), roots and aunts "
+    errs["sha256_leaf_blocks"]["adversarial"], errs["merkle_tree"]["adversarial"] = adv_leaf, adv_tree
+    print(f"phase 6: adversarial trees m = {MERKLE_M} (empty, 54-, 55-byte and 40-block leaves), every tree on "
+          f"the card: seams identical to the plain versions (leaf {adv_leaf}, tree {adv_tree}), roots and aunts "
           f"= hashlib; sha256 of 55- and 56-byte messages = hashlib ({time.perf_counter() - t0:.1f} s)")
+    # wide trees: 100,001 leaves through both kernels, roots and aunts
+    # against hashlib; 1,000,000 leaf states (its chunk roots outnumber a
+    # block's chunk, so the top loops in global memory) against the plain
+    # version and hashlib's levels
+    t1 = time.perf_counter()
+    items = adversarial_leaves(rng, 100_001)
+    e_leaf, e_tree, root = merkle_seams(sha, hasher, items)
+    require(e_leaf == 0 and e_tree == 0 and root == host_root(items),
+            f"100,001 leaves: seams identical (leaf {e_leaf}, tree {e_tree}), root = hashlib's")
+    saved = merkle.DEVICE_THRESHOLD
+    merkle.DEVICE_THRESHOLD = 2
+    try:
+        check_proofs(merkle, items, "100,001 leaves")
+    finally:
+        merkle.DEVICE_THRESHOLD = saved
+    big = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (8, 1_000_000), dtype=np.int64).astype(np.int32)).cuda()
+    e_big, root_big = tree_seams(sha, big)
+    want_big = hasher.host_levels([d.tobytes() for d in sha.state_to_digests(big.cpu().numpy())])[-1][0]
+    require(e_big == 0 and root_big == want_big, f"1,000,000 leaf states: tree identical to the plain version "
+                                                 f"({e_big}), root = hashlib's")
+    errs["sha256_leaf_blocks"]["100001_leaves"], errs["merkle_tree"]["100001_leaves"] = e_leaf, e_tree
+    errs["merkle_tree"]["1000000_states"] = e_big
+    print(f"  100,001 leaves: seams identical, root and aunts = hashlib; 1,000,000 leaf states: every level "
+          f"identical to the plain version, root = hashlib's ({time.perf_counter() - t1:.1f} s)")
     # one long leaf among short ones: the flat layout holds each leaf's own
     # blocks (the dense one padded all 1,024 to 16,385 blocks: 1.07 GB)
     t1 = time.perf_counter()
@@ -868,13 +977,9 @@ def phase6(vs, commit, card):
     require(blocks.nbytes <= 1.1 * leaf_bytes, f"flat packing of 1,023 x 32 B + 1 MiB: {blocks.nbytes} B for "
                                                f"{leaf_bytes} B of leaves")
     sha.reset_launches()
-    saved = merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH
-    merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH = 2, 1
-    try:
-        check_proofs(merkle, items, "1,023 x 32 B + 1 MiB, every level on the card")
-    finally:
-        merkle.DEVICE_THRESHOLD, hasher.HOST_TAIL_WIDTH = saved
-    require(sha.launches()["sha256_leaf_blocks"] > 0, "the long-leaf tree ran the leaf kernel")
+    check_proofs(merkle, items, "1,023 x 32 B + 1 MiB, on the card")
+    require(sha.launches() == {"sha256_leaf_blocks": 2, "merkle_tree": 2},
+            f"the long-leaf tree ran a leaf and a tree launch for its root and for its proofs: {sha.launches()}")
     print(f"  1,023 x 32 B + one 1 MiB leaf: {blocks.nbytes} B packed for {leaf_bytes} B of leaves "
           f"({blocks.nbytes / leaf_bytes:.3f}x; dense: {len(items) * int(counts.max()) * 64} B), root and aunts = "
           f"hashlib ({time.perf_counter() - t1:.1f} s)")
@@ -894,54 +999,45 @@ def phase6(vs, commit, card):
         torch.cuda.synchronize()
         n_launch = sha.launches()
         require(got == root, f"{name} at {N_VALS}: root equals hashlib's")
-        require(n_launch == {"sha256_leaf_blocks": 1, "merkle_inner_level": 7},
-                f"{name} at {N_VALS}: one leaf launch and seven inner ones: {n_launch}")
+        require(n_launch == {"sha256_leaf_blocks": 1, "merkle_tree": 1},
+                f"{name} at {N_VALS}: one leaf launch and one tree launch: {n_launch}")
         check_proofs(merkle, leaves, f"{name} leaves")
-        e_leaf, e_inner, seam_root = merkle_seams(sha, hasher, leaves)
-        require(seam_root == root, f"{name}: every level on the card gives hashlib's root")
-        errs["sha256_leaf_blocks"][name], errs["merkle_inner_level"][name] = e_leaf, e_inner
+        e_leaf, e_tree, seam_root = merkle_seams(sha, hasher, leaves)
+        require(seam_root == root, f"{name}: the kernels give hashlib's root")
+        errs["sha256_leaf_blocks"][name], errs["merkle_tree"][name] = e_leaf, e_tree
         p50, p99, wall = events_and_wall(run, make, reps=30)
         split = root_split(sha, merkle, hasher, leaves_of, make)
         blocks, offsets, counts = hasher.MerkleHasher().pack(leaves)
         b, o, c = (torch.from_numpy(a).cuda() for a in (blocks, offsets, counts))
-        widths = []
-        w = len(leaves)
-        while w > hasher.HOST_TAIL_WIDTH:
-            widths.append(w)
-            w = (w + 1) // 2
         state = sha.leaf_block_states(b, c, o)
-
-        def levels(f, st=state):
-            for width in widths:
-                st = f(st, width)
-            return st
-
+        m = len(leaves)
         out[name] = dict(
-            launches=n_launch, p50=p50, p99=p99, wall=wall, split=split, rows=len(leaves), widths=widths,
-            blocks=int(counts.sum()),
+            launches=n_launch, p50=p50, p99=p99, wall=wall, split=split, rows=m, blocks=int(counts.sum()),
             leaf_ms=device_ms(lambda: sha.leaf_block_states(b, c, o), reps=20),
             leaf_call_ms=median_ms(lambda: sha.leaf_block_states(b, c, o), reps=20, repeats=5),
             leaf_plain_ms=median_ms(lambda: sha.leaf_blocks_plain(b, c, o), reps=1, repeats=3),
-            inner_ms=device_ms(lambda: levels(sha.merkle_inner_level), reps=20),
-            inner_call_ms=median_ms(lambda: levels(sha.merkle_inner_level), reps=20, repeats=5),
-            inner_plain_ms=median_ms(lambda: levels(sha.inner_level_plain), reps=1, repeats=3),
+            tree_ms=device_ms(lambda: sha.merkle_tree(state, m), reps=20),
+            tree_call_ms=median_ms(lambda: sha.merkle_tree(state, m), reps=20, repeats=5),
+            tree_plain_ms=median_ms(lambda: sha.merkle_tree_plain(state, m), reps=1, repeats=3),
+            tree_levels_ms=device_ms(lambda: sha.merkle_tree(state, m, levels=True), reps=20),
         )
-        print(f"  {name} @{N_VALS} ({out[name]['blocks']} blocks in {len(leaves)} leaves): root and aunts = "
-              f"hashlib, seams identical (leaf {e_leaf}, inner {e_inner}), launches {n_launch}; 30 calls on fresh "
-              f"objects, CUDA events p50 {p50:.3f} ms p99 {p99:.3f} ms, host clock p50 {wall:.3f} ms ({card})")
+        print(f"  {name} @{N_VALS} ({out[name]['blocks']} blocks in {m} leaves): root and aunts = hashlib, seams "
+              f"identical (leaf {e_leaf}, tree {e_tree}), launches {n_launch}; 30 calls on fresh objects, CUDA "
+              f"events p50 {p50:.3f} ms p99 {p99:.3f} ms, host clock p50 {wall:.3f} ms ({card})")
         print("    host clock split (medians of 10): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
-        print(f"    kernels on the device alone: leaf {out[name]['leaf_ms']:.4f} ms, the {len(widths)} inner levels "
-              f"{out[name]['inner_ms']:.4f} ms (outputs {(widths[0] + 1) // 2} -> {(widths[-1] + 1) // 2} nodes); "
-              f"back-to-back calls with the host's launch cost: leaf {out[name]['leaf_call_ms']:.4f} ms, inner "
-              f"{out[name]['inner_call_ms']:.4f} ms")
+        print(f"    kernels on the device alone: leaf {out[name]['leaf_ms']:.4f} ms, the tree's "
+              f"{len(sha.tree_widths(m)) - 1} levels {out[name]['tree_ms']:.4f} ms (every level out: "
+              f"{out[name]['tree_levels_ms']:.4f} ms); back-to-back calls with the host's launch cost: leaf "
+              f"{out[name]['leaf_call_ms']:.4f} ms, tree {out[name]['tree_call_ms']:.4f} ms")
 
     vsh, ch = out["ValidatorSet.hash"], out["Commit.hash"]
     rows = {}
     for name, key, replaces, also in (
         ("sha256_leaf_blocks", "leaf", "tendermint_tpu/ops/sha256.py:131",
          "tendermint_tpu/ops/sha256.py:140 (leaf_block_update)"),
-        ("merkle_inner_level", "inner", "tendermint_tpu/ops/sha256.py:159",
-         "tendermint_tpu/ops/sha256.py:218 (merkle_inner_tail)"),
+        ("merkle_tree", "tree", "tendermint_tpu/ops/sha256.py:159",
+         "tendermint_tpu/ops/sha256.py:218 (merkle_inner_tail), level by level, and the host finish of "
+         "tendermint_tpu/models/hasher.py"),
     ):
         ms_key, plain_key, call_key = f"{key}_ms", f"{key}_plain_ms", f"{key}_call_ms"
         per = {}
@@ -949,7 +1045,7 @@ def phase6(vs, commit, card):
             if name == "sha256_leaf_blocks":
                 io, ops = o["blocks"] * 64 + o["rows"] * (4 + 4 + 32), sha256_leaf_ops(o["blocks"], o["rows"])
             else:
-                io, ops = inner_bound(o["widths"])
+                io, ops = tree_bound(o["rows"])
             per[tree] = (io, ops)
         io, ops = per["valset"]
         row = kernel_row(name, "sha256_kernels.cu", None, max(errs[name].values()), vsh[call_key],
@@ -959,7 +1055,8 @@ def phase6(vs, commit, card):
         row.update(
             replaces=replaces, replaces_also=also, max_abs_err_by_input=errs[name],
             shape=("10,000 one-block leaves (ValidatorSet.hash), one launch" if name == "sha256_leaf_blocks"
-                   else f"the {len(vsh['widths'])} levels of ValidatorSet.hash, widths {vsh['widths']}"),
+                   else f"the whole tree of ValidatorSet.hash's {vsh['rows']} leaves, widths "
+                        f"{sha.tree_widths(vsh['rows'])}, the root out, one launch"),
             ms_device_only=vsh[ms_key],
             launches_valset_hash=vsh["launches"][name], launches_commit_hash=ch["launches"][name],
             commit_hash_ms=ch[call_key], commit_hash_ms_device_only=ch[ms_key],
@@ -970,14 +1067,29 @@ def phase6(vs, commit, card):
                                   else SHA256_INNER_NODE_INSTR),
             sass_static_opcodes=sass,
         )
+        if name == "merkle_tree":
+            levels = len(sha.tree_widths(vsh["rows"])) - 1
+            row.update(ms_device_only_every_level=vsh["tree_levels_ms"], commit_hash_rows=ch["rows"],
+                       latency_floor={"dependent_levels": levels, "dependent_compressions": 2 * levels,
+                                      "dependent_rounds": 128 * levels},
+                       chain_floor_ms=chain_floor_ms(levels * SHA256_INNER_NODE_INSTR),
+                       **ptxas_usage(name))
         rows[name] = row
         if sass is not None:
             top = sorted(sass.items(), key=lambda kv: -kv[1])[:6]
+            local = {k: sass.get(k, 0) for k in ("LDL", "STL")}
             print(f"  {name}: the bound counts {row['instructions_counted']} instructions a "
                   f"{'block' if name == 'sha256_leaf_blocks' else 'node'}; its SASS holds {sum(sass.values())} "
-                  f"(static; " + ", ".join(f"{k} {v}" for k, v in top) + ")")
+                  f"(static; " + ", ".join(f"{k} {v}" for k, v in top) + f"; local memory {local})")
         else:
             print(f"  {name}: no cuobjdump in the toolkit, SASS not counted")
+    tr = rows["merkle_tree"]
+    print(f"  merkle_tree: {tr.get('registers')} registers, {tr.get('stack_frame')} bytes of stack frame, "
+          f"{tr.get('spill_stores')} / {tr.get('spill_loads')} bytes of spill stores / loads; bound "
+          f"{tr['bound_ms']:.5f} ms by {tr['bound_by']} (all {vsh['rows'] - 1} inner nodes), its critical path "
+          f"{tr['latency_floor']['dependent_compressions']} dependent compressions, at least "
+          f"{tr['chain_floor_ms']:.4f} ms at the card's maximum SM clock; {tr['ms_device_only']:.4f} ms on the "
+          f"device alone ({card})")
     return rows
 
 
@@ -1023,7 +1135,7 @@ def phase7(vs, by_addr, rng, card, kernels):
         return {**ed.launches(), **sha.launches()}
 
     adj = counted(lambda: lv.verify(CHAIN, sh1, vs, fresh_sh(sh2), fresh_set(vs), TRUSTING_PERIOD, **args))
-    require(adj["sha256_leaf_blocks"] == 1 and adj["merkle_inner_level"] == 7,
+    require(adj["sha256_leaf_blocks"] == 1 and adj["merkle_tree"] == 1,
             f"verify (adjacent) hashed the untrusted set through the merkle kernels: {adj}")
     require(all(adj[k] > 0 for k in ("ed25519_prepare_tabled", "ed25519_scan_tabled", "ed25519_finish")),
             f"verify (adjacent) ran the tabled ed25519 kernels: {adj}")
@@ -1034,7 +1146,7 @@ def phase7(vs, by_addr, rng, card, kernels):
                                                              (fresh_sh(sh4), fresh_set(s2))], TRUSTING_PERIOD, **args))
     require(chain["ed25519_prepare"] == 1 and chain["ed25519_scan"] == 1 and chain["ed25519_finish"] == 1,
             f"verify_chain over S and S' ran the generic kernels once, in one verify_batch call: {chain}")
-    require(chain["sha256_leaf_blocks"] == 2 and chain["merkle_inner_level"] == 14,
+    require(chain["sha256_leaf_blocks"] == 2 and chain["merkle_tree"] == 2,
             f"verify_chain hashed S and S' through the merkle kernels: {chain}")
     require(chain["ed25519_prepare_tabled"] == 0 and chain["ed25519_scan_tabled"] == 0,
             f"verify_chain over two sets took the generic path alone: {chain}")
@@ -1144,7 +1256,7 @@ def phase7(vs, by_addr, rng, card, kernels):
     for name, row in kernels.items():
         row["launches_light_verify_adjacent"] = adj[name]
         row["launches_light_verify_chain"] = chain[name]
-    for name in ("sha256_leaf_blocks", "merkle_inner_level"):
+    for name in ("sha256_leaf_blocks", "merkle_tree"):
         kernels[name]["launches"] = adj[name]
 
 
@@ -1896,6 +2008,7 @@ def routed_engines(vs, vs_b, commit, bid, router, verifier_t, verifier_g, bls_ro
     from tendermint_tpu_torch import BLSEngine, MerkleHasher, TorchBatchVerifier, get_default_provider, \
         set_default_provider
     from tendermint_tpu_torch.crypto import merkle
+    from tendermint_tpu_torch.ops import sha256 as sha
 
     key, all_pk = vs.batch_cache()
     _i, vals_idx, csig, cpow, ccnt, _s, tpl = vs._commit_batch_arrays(CHAIN, commit)
@@ -1926,6 +2039,10 @@ def routed_engines(vs, vs_b, commit, bid, router, verifier_t, verifier_g, bls_ro
         lambda: BLSEngine(router=router).verify_rows(bls_rows))
     require(np.array_equal(ok_bls, want["ok_bls"]), "routed BLS verdicts equal the unrouted ones")
     counts["MerkleHasher.root"], root = counted_run(lambda: MerkleHasher(router=router).root(want["leaves"]))
+    routed = MerkleHasher(router=router)
+    err, routed_root = tree_seams(sha, routed.leaf_states(*routed.pack(want["leaves"])))
+    require(err == 0 and routed_root == want["root"],
+            f"merkle_tree on the routed leaf states is identical to its plain version ({err})")
     merkle.configure_device(router=router)
     try:
         seam_root = merkle.hash_from_byte_slices(want["leaves"])
@@ -1933,17 +2050,6 @@ def routed_engines(vs, vs_b, commit, bid, router, verifier_t, verifier_g, bls_ro
         merkle.configure_device(router=None)
     require(root == seam_root == want["root"], "routed merkle roots equal the unrouted one")
     return counts
-
-
-def inner_levels(width: int) -> int:
-    """The inner-level launches of a root of `width` leaves: one a level
-    while the level is wider than HOST_TAIL_WIDTH."""
-    from tendermint_tpu_torch.models import hasher
-
-    levels = 0
-    while width > max(hasher.HOST_TAIL_WIDTH, 1):
-        width, levels = (width + 1) // 2, levels + 1
-    return levels
 
 
 def paired_ms(call_a, call_b, make, reps: int):
@@ -2049,8 +2155,8 @@ def phase9(vs, vs_b, commit, bid, card, kernels, bls_rows, verifier_t, verifier_
         require(counts["verify_commit (generic)"].get("ed25519_prepare_tabled") is None
                 and counts["verify_commit (tabled, default provider)"].get("ed25519_prepare") is None,
                 f"{what}: each path ran its own kernels: {counts}")
-        require(counts["MerkleHasher.root"].get("merkle_inner_level") == inner_levels(len(leaves)),
-                f"the inner levels ran unrouted: {counts['MerkleHasher.root']}")
+        require(counts["MerkleHasher.root"].get("merkle_tree") == 1,
+                f"the tree ran unrouted, in one launch: {counts['MerkleHasher.root']}")
         report[what] = {"slots": slots, "distinct_devices": distinct, "launches": counts, "errors": errs_t,
                         "router": check_router(router, seen, what, True)}
         require(st["collective_bundles"] > before["collective_bundles"], f"{what}: the bundles were collective")
@@ -2473,6 +2579,18 @@ def main() -> int:
     require(ok_adv.tolist() == want, "tabled verdicts on the adversarial batch equal the pure-Python oracle")
     errs_t_main["ed25519_build_tables"] = err_build_main
     errs_t_adv["ed25519_build_tables"] = err_build_adv
+    # the tabled prepare at verify_commit_trusting's rows and at its edges
+    trsrc = {"idx": torch.from_numpy(np.asarray(b_vals, dtype=np.int32)).cuda(),
+             "templates": torch.from_numpy(np.ascontiguousarray(b_tpl[0])).cuda(),
+             "tmpl_idx": torch.from_numpy(np.asarray(b_tpl[1], dtype=np.int32)).cuda(),
+             "ts8": torch.from_numpy(np.ascontiguousarray(b_tpl[2])).cuda()}
+    trsig = torch.from_numpy(np.array(b_sig)).cuda()
+    trpk = torch.from_numpy(np.ascontiguousarray(pk_b)).cuda()
+    err_trust = prepare_tabled_err(ed, trpk, trsig, trsrc)
+    err_edges = prepare_tabled_edges_err(ed, entry.pk, tsig, tsrc)
+    errs_t_main["ed25519_prepare_tabled"] = max(errs_t_main["ed25519_prepare_tabled"], err_trust, err_edges)
+    print(f"  ed25519_prepare_tabled at verify_commit_trusting's {trsig.shape[0]} rows: {err_trust}; with key and "
+          f"template indices out of range: {err_edges}")
     require(all(e == 0 for e in list(errs_t_main.values()) + list(errs_t_adv.values())),
             f"tabled kernels identical to their plain versions: main {errs_t_main}, adversarial {errs_t_adv}")
     print(f"  seams identical to the plain versions: main path ({N_VALS} validators, {n} rows) {errs_t_main}; "
@@ -2541,7 +2659,7 @@ def main() -> int:
     }
     t_ops = {
         "ed25519_build_tables": v * field_ops(tmuls["ed25519_build_tables"]),
-        "ed25519_prepare_tabled": n * sha_blocks * OPS_PER_SHA512_BLOCK,
+        "ed25519_prepare_tabled": n * (sha_blocks * OPS_PER_SHA512_BLOCK + 2 * PREPARE_TABLED_SCALAR_INSTR),
         "ed25519_scan_tabled": n * field_ops(tmuls["ed25519_scan_tabled"]),
     }
     t_runs = {
@@ -2567,6 +2685,22 @@ def main() -> int:
         kernels[name].update(replaces=replaces_t[name], max_abs_err_adversarial=errs_t_adv[name],
                              max_abs_err_main_path=errs_t_main[name], ms_device_only=device_ms(kern, reps=reps),
                              field_squarings_per_row=tmuls[name]["squarings"], **ptxas_usage(name))
+    ptr = kernels["ed25519_prepare_tabled"]
+    ms_tr = device_ms(lambda: ed.verify_stage_prepare_tabled(trpk, trsig, **trsrc), reps=20)
+    bound_tr, by_tr = bound_at(ptr, trsig.shape[0])
+    sass_prep = sass_opcodes("ed25519_prepare_tabled")
+    ptr.update(rows_trusting=int(trsig.shape[0]), ms_device_only_trusting=ms_tr, bound_ms_trusting=bound_tr,
+               max_abs_err_trusting=err_trust, max_abs_err_out_of_range_rows=err_edges,
+               scalar_instructions_per_row=PREPARE_TABLED_SCALAR_INSTR,
+               chain_floor_ms=chain_floor_ms(sha_blocks * OPS_PER_SHA512_BLOCK // 2 + PREPARE_TABLED_SCALAR_INSTR),
+               sass_local_memory=None if sass_prep is None else {k: sass_prep.get(k, 0) for k in ("LDL", "STL")},
+               sass_static_instructions=None if sass_prep is None else sum(sass_prep.values()))
+    print(f"  ed25519_prepare_tabled: {ptr['ms_device_only']:.4f} ms on the device alone at {n} rows (bound "
+          f"{ptr['bound_ms']:.4f} ms by {ptr['bound_by']}, SHA-512 and {PREPARE_TABLED_SCALAR_INSTR} scalar "
+          f"instructions a row), {ms_tr:.4f} ms at {trsig.shape[0]} rows (bound {bound_tr:.4f} by {by_tr}); "
+          f"{ptr['registers']} registers, {ptr['stack_frame']} bytes of stack frame, {ptr['spill_stores']} / "
+          f"{ptr['spill_loads']} bytes of spill stores / loads, local memory in its SASS {ptr['sass_local_memory']}; "
+          f"a row's chain at least {ptr['chain_floor_ms']:.4f} ms at the card's maximum SM clock ({card})")
     for name in ("ed25519_prepare", "ed25519_finish"):
         print(f"  {name}: one thread a row; -Xptxas -v: {kernels[name]['registers']} registers, "
               f"{kernels[name]['spill_stores']} / {kernels[name]['spill_loads']} bytes of spill stores / loads, "

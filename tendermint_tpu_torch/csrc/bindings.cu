@@ -24,7 +24,8 @@ cudaError_t launch_prepare_tabled(const uint8_t*, const int32_t*, int, const uin
 cudaError_t launch_scan_tabled(const int8_t*, const int8_t*, const int32_t*, const uint8_t*, const int32_t*, int,
                                int, int32_t*, uint8_t*, cudaStream_t);
 cudaError_t launch_sha256_leaf_blocks(const uint8_t*, const int32_t*, const int32_t*, int, int, uint32_t*, cudaStream_t);
-cudaError_t launch_merkle_inner_level(const uint32_t*, int, int, uint32_t*, cudaStream_t);
+cudaError_t launch_merkle_tree(const uint32_t*, int, int, uint32_t*, int, uint32_t*, int, uint32_t*, int, cudaStream_t);
+int merkle_tree_layout(int n, int* chunk);
 cudaError_t set_bls_constants(const void* host, size_t bytes);
 void bls12_lanes(int* pairing, int* map, int* aggregate, int* chunk);
 cudaError_t launch_bls12_pairing_check(const uint8_t*, const uint8_t*, const uint8_t*, int, int, uint8_t*, uint8_t*,
@@ -108,9 +109,16 @@ int tm_sha256_leaf_blocks(const void* blocks, const void* offsets, const void* c
                                             total, (uint32_t*)state, (cudaStream_t)stream);
 }
 
-int tm_merkle_inner_level(const void* level, int c, int m, void* out, void* stream) {
-  return (int)tmk::launch_merkle_inner_level((const uint32_t*)level, c, m, (uint32_t*)out, (cudaStream_t)stream);
+// The leaf states (8, stride) of n leaves -> the root in column 0 of (8,
+// rstride), and with flat (8, total) non-null every level, leaves first.
+int tm_merkle_tree(const void* leaves, int stride, int n, void* flat, int total, void* scratch, int sstride,
+                   void* root, int rstride, void* stream) {
+  return (int)tmk::launch_merkle_tree((const uint32_t*)leaves, stride, n, (uint32_t*)flat, total, (uint32_t*)scratch,
+                                     sstride, (uint32_t*)root, rstride, (cudaStream_t)stream);
 }
+
+// Columns of scratch a tree of n leaves needs; *chunk its leaves a block.
+int tm_merkle_tree_layout(int n, int* chunk) { return tmk::merkle_tree_layout(n, chunk); }
 
 // The BLS12-381 constants struct (csrc/fp381.cuh), packed by ops/bls12.py.
 int tm_set_bls_constants(int device, const void* host, size_t bytes) {

@@ -1,5 +1,6 @@
 // The ed25519 kernels' arithmetic (fe25519.cuh, ge25519.cuh,
-// ge25519_lanes.cuh) built as host C++ with a plain C interface, for the
+// ge25519_lanes.cuh) and the tabled prepare's steps (prepare_tabled.cuh,
+// sha512.cuh, sc25519.cuh) built as host C++ with a plain C interface, for the
 // tests: ops/ed25519_host.py compiles it with g++ and loads it with
 // ctypes. Without nvcc the headers take their portable branches: `par`
 // runs a row's lanes in turn over each stage. Nothing here is part of the
@@ -14,6 +15,7 @@
 #include <vector>
 
 #include "ge25519_lanes.cuh"
+#include "prepare_tabled.cuh"
 
 namespace {
 
@@ -30,6 +32,34 @@ int host_build_row(int32_t* out, const uint8_t* pk) {
   uint8_t ok = 0;
   build_row(host_lanes(G), *R, pk, host_k, out, &ok);
   return ok;
+}
+
+// ed25519_prepare_tabled with blocks of R rows: the blocks in turn, and in
+// each the threads in turn over every step of the kernel
+// (prepare_tabled.cuh); digest (N, 64), when not null, gets each row's
+// SHA-512 digest.
+template <int R>
+void host_prepare_tabled(const PrepArgs& a, uint8_t* digest) {
+  auto S = std::make_unique<PrepStage<R>>();
+  std::vector<uint64_t> st(8 * R);
+  const int blocks = sha512_preimage_blocks(a.mlen);
+  const int passes = a.tpl != nullptr ? (a.ntpl + R - 1) / R : 1;
+  for (int base = 0; base < a.n; base += R) {
+    for (int t = 0; t < R; t++) {
+      prep_stage_rows<R>(*S, a, base, t);
+      sha512_init(&st[8 * t]);
+    }
+    for (int cb = 0; cb < blocks; cb++)
+      for (int p = 0; p < passes; p++) {
+        for (int t = 0; t < R; t++) prep_stage_msg<R>(*S, a, base, cb, p * R, t);
+        for (int t = 0; t < R; t++) prep_row_block<R>(*S, a, cb, p * R, t, &st[8 * t]);
+      }
+    for (int t = 0; t < R && base + t < a.n; t++) {
+      if (digest != nullptr)
+        for (int i = 0; i < 64; i++) digest[64 * (size_t)(base + t) + i] = (uint8_t)(st[8 * t + i / 8] >> (56 - 8 * (i % 8)));
+      prep_row_finish<R>(*S, a, base, t, &st[8 * t]);
+    }
+  }
 }
 
 }  // namespace
@@ -142,6 +172,49 @@ int ed_host_set_comb(const void* blob, size_t bytes) {
 void ed_host_scan_tabled_row(int32_t* out, const int8_t* sd8, const int8_t* kd, const int32_t* tab, int lanes) {
   auto R = std::make_unique<TabRow>();
   scan_tabled_row(host_lanes(lanes), *R, sd8, kd, tab, host_comb.data(), out);
+}
+
+// ed25519_prepare_tabled on the host with blocks of `rows` (32, 64 or
+// 128): the kernel's arguments (msg null for the template form, tpl null
+// for the matrix form); digest (N, 64) or null. Returns -1 for another
+// block size.
+int ed_host_prepare_tabled(const uint8_t* pk_all, const int32_t* idx, int v, const uint8_t* msg, int mlen,
+                           const uint8_t* tpl, int ntpl, const int32_t* tmpl_idx, const uint8_t* ts8, int ts_off,
+                           const uint8_t* sig, int n, int8_t* sd8, int8_t* kd, uint8_t* s_ok, uint8_t* digest,
+                           int rows) {
+  const PrepArgs a{pk_all, idx, v, msg, mlen, tpl, ntpl, tmpl_idx, ts8, ts_off, sig, n, sd8, kd, s_ok};
+  switch (rows) {
+    case 32: host_prepare_tabled<32>(a, digest); return 0;
+    case 64: host_prepare_tabled<64>(a, digest); return 0;
+    case 128: host_prepare_tabled<128>(a, digest); return 0;
+  }
+  return -1;
+}
+
+// sc_reduce_words of a 64-byte digest (its state words read big-endian)
+// -> out (32,) little-endian.
+void ed_host_sc_reduce(const uint8_t* digest, uint8_t* out) {
+  uint64_t st[8], k[4];
+  for (int i = 0; i < 8; i++) {
+    uint64_t v = 0;
+    for (int j = 0; j < 8; j++) v = (v << 8) | digest[8 * i + j];
+    st[i] = v;
+  }
+  sc_reduce_words(k, st);
+  for (int i = 0; i < 32; i++) out[i] = (uint8_t)(k[i / 8] >> (8 * (i % 8)));
+}
+
+// A 32-byte scalar's packed digits: nibbles (64,) as signed_digits and
+// bytes (32,) as signed_digits256 give them, unpacked; returns s < L.
+int ed_host_scalar_digits(const uint8_t* s, int8_t* nibbles, int8_t* bytes) {
+  uint64_t w[4];
+  uint32_t nd[16], bd[8];
+  sc_load_bytes(w, s);
+  signed_digits(nd, w);
+  signed_digits256(bd, w);
+  for (int i = 0; i < 64; i++) nibbles[i] = (int8_t)(nd[i / 4] >> (8 * (i % 4)));
+  for (int i = 0; i < 32; i++) bytes[i] = (int8_t)(bd[i / 4] >> (8 * (i % 4)));
+  return sc_is_canonical(w);
 }
 
 // One ed25519_build_tables validator on 2, 4, 8 or 16 lanes: pk (32,) ->

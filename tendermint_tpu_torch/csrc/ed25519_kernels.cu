@@ -73,15 +73,16 @@ constexpr int kPrepareThreads = kBlock + kWarp;
 // s < L, the digits of s, k = SHA-512(R || A || M) mod L and its digits.
 static __device__ void prepare_scalars(int row, const uint8_t* p, const uint8_t* m, const uint8_t* s, int mlen,
                                        int8_t* sd, int8_t* kd, uint8_t* s_ok) {
-  uint8_t sb[32];
-#pragma unroll
-  for (int i = 0; i < 32; i++) sb[i] = s[32 + i];
-  s_ok[row] = sc_is_canonical(sb);
-  signed_digits(sd + 64 * (size_t)row, sb);
-  uint8_t h[64], k[32];
-  tm_sha512_preimage(h, s, p, MatMsg{m}, mlen, c_k.sha512_k);
-  sc_reduce(k, h);
-  signed_digits(kd + 64 * (size_t)row, k);
+  uint64_t sw[4], st[8], k[4];
+  uint32_t digits[16];
+  sc_load_bytes(sw, s + 32);
+  s_ok[row] = sc_is_canonical(sw);
+  signed_digits(digits, sw);
+  store_digits(sd + 64 * (size_t)row, digits, 16);
+  tm_sha512_preimage(st, s, p, m, mlen);
+  sc_reduce_words(k, st);
+  signed_digits(digits, k);
+  store_digits(kd + 64 * (size_t)row, digits, 16);
 }
 
 __global__ void __launch_bounds__(kPrepareThreads) ed25519_prepare(

@@ -49,7 +49,10 @@
 // compiled in (kBuildLanes, the fastest of 2, 4, 8 and 16 at 10,000
 // validators: scripts/ed25519_lane_sweep.py).
 //
-// prepare: one thread a row, the simple form of ed25519_kernels.cu. The
+// prepare: one thread a row in blocks of R rows that stage their inputs
+// and the templates' words in shared memory (prepare_tabled.cuh): a row
+// builds each 64-bit message word from one shared read, never byte by
+// byte, and stores its digits 16 bytes at a time. The
 // scan: a row on G = 4 lanes of a warp (kScanTabledLanes, the fastest of
 // 2, 4 and 8 at 4,737 and 9,510 rows: scripts/ed25519_lane_sweep.py), as
 // ed25519_scan does (ed25519_kernels.cu): each doubling and mixed addition is
@@ -72,8 +75,7 @@
 #include "fe25519.cuh"
 #include "ge25519.cuh"
 #include "ge25519_lanes.cuh"
-#include "sc25519.cuh"
-#include "sha512.cuh"
+#include "prepare_tabled.cuh"
 
 namespace tmk {
 
@@ -83,7 +85,7 @@ constexpr int kEntries = kBuildEntries;
 constexpr int kTableInts = kBuildTableInts;
 __device__ int32_t c_comb[kCombPositions][kCombEntries][3][10];
 
-constexpr int kTabBlock = 64;
+constexpr int kPrepRows = 64;         // rows a block of ed25519_prepare_tabled
 constexpr int kScanTabledBlock = 32;  // threads a block of ed25519_scan_tabled: one warp
 constexpr int kBuildLanes = 4;        // G of ed25519_build_tables
 constexpr int kScanTabledLanes = 4;   // G of ed25519_scan_tabled
@@ -167,53 +169,48 @@ __global__ void __launch_bounds__(128, 3) ed25519_build_tables(const uint8_t* __
 
 // Replaces verify_stage_prepare_tabled (ops/ed25519.py:123), its
 // _gathered variant (:141) and materialize_sign_bytes (:170).
-// The key is read by index from the valset's key matrix and each
-// message byte from where it lives -- the row of a message matrix, or
-// the row's template with its 8 timestamp bytes at ts_off -- so neither
-// a gathered key matrix nor a sign-bytes matrix is ever built.
-// Bound: two SHA-512 blocks and one scalar reduction a row (64-bit adds
-// and rotates, no field arithmetic); about 120 B in and 97 B out a row
-// with templates.
-// pk_all (V,32) u8, idx (N,) i32 or null (row r is validator r),
-// messages: msg (N,mlen) u8, or tpl (T,mlen) u8 with tmpl_idx (N,) i32
-// and ts8 (N,8) u8; sig (N,64) u8 -> sd8 (N,32) i8 signed base-256
-// digits of s, kd (N,64) i8 signed nibbles of k, s_ok (N,) u8.
-// A row whose idx or tmpl_idx is out of range reads nothing and is
-// rejected (s_ok 0, digits 0); the host checks its indices first.
-__global__ void __launch_bounds__(kTabBlock) ed25519_prepare_tabled(
-    const uint8_t* __restrict__ pk_all, const int32_t* __restrict__ idx, int v,
-    const uint8_t* __restrict__ msg, int mlen, const uint8_t* __restrict__ tpl, int ntpl,
-    const int32_t* __restrict__ tmpl_idx, const uint8_t* __restrict__ ts8, int ts_off,
-    const uint8_t* __restrict__ sig, int n, int8_t* __restrict__ sd8, int8_t* __restrict__ kd,
-    uint8_t* __restrict__ s_ok) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const int vi = idx != nullptr ? idx[row] : row;
-  const int ti = tpl != nullptr ? tmpl_idx[row] : 0;
-  if (vi < 0 || vi >= v || (tpl != nullptr && (ti < 0 || ti >= ntpl))) {
-    s_ok[row] = 0;
-    for (int i = 0; i < 32; i++) sd8[32 * (size_t)row + i] = 0;
-    for (int i = 0; i < 64; i++) kd[64 * (size_t)row + i] = 0;
-    return;
+// The key is read by index from the valset's key matrix and the message
+// from where it lives -- the rows of a message matrix, or the row's
+// template with its 8 timestamp bytes spliced in at ts_off -- so neither a
+// gathered key matrix nor a sign-bytes matrix is ever built.
+// Bound: a row's SHA-512 blocks (two for 160-byte sign-bytes), its scalar
+// reduction, s < L and the two digit recodings (64-bit adds, rotates and
+// shifts, no field arithmetic); about 110 B in and 97 B out a row with
+// templates. A row is one thread's chain of some 12,000 32-bit integer
+// instructions, and a warp issues one of those every second cycle at
+// best (16 INT32 lanes a scheduler), while a commit's 9,510 rows fill
+// fewer warps than the card has schedulers: the chain, about 12 us at
+// 1.98 GHz, not the card's rate, is the floor.
+// A block of R rows, one thread a row, in the steps of prepare_tabled.cuh:
+// the rows' inputs staged in shared memory with coalesced 16-byte loads,
+// the templates' words staged once a block and compression block, each
+// message word one shared read and a byte permute, the 80 rounds unrolled
+// with immediate constants, the digest reduced from its state words and
+// the digits stored packed, 16 bytes at a time. A row whose idx or
+// tmpl_idx is out of range reads nothing and is rejected (s_ok 0, digits
+// 0); the host checks its indices first. R is compiled in (kPrepRows: 32,
+// 64 and 128 came within 3 % of each other at 4,737 and 9,510 rows, 64
+// the fastest at 9,510: scripts/prepare_tree_sweep.py).
+template <int R>
+__global__ void __launch_bounds__(R) ed25519_prepare_tabled(const PrepArgs a) {
+  __shared__ PrepStage<R> S;
+  const int base = blockIdx.x * R, r = (int)threadIdx.x;
+  prep_stage_rows<R>(S, a, base, r);
+  uint64_t st[8];
+  sha512_init(st);
+  const int blocks = sha512_preimage_blocks(a.mlen);
+  const int passes = a.tpl != nullptr ? (a.ntpl + R - 1) / R : 1;
+#pragma unroll 1
+  for (int cb = 0; cb < blocks; cb++) {
+#pragma unroll 1
+    for (int p = 0; p < passes; p++) {
+      __syncthreads();  // the staged rows are in, and the last pass's words read
+      prep_stage_msg<R>(S, a, base, cb, p * R, r);
+      __syncthreads();
+      prep_row_block<R>(S, a, cb, p * R, r, st);
+    }
   }
-  const uint8_t* p = pk_all + 32 * (size_t)vi;
-  const uint8_t* s = sig + 64 * (size_t)row;
-
-  uint8_t sb[32];
-#pragma unroll
-  for (int i = 0; i < 32; i++) sb[i] = s[32 + i];
-  s_ok[row] = sc_is_canonical(sb);
-  signed_digits256(sd8 + 32 * (size_t)row, sb);
-
-  uint8_t h[64], k[32];
-  if (tpl != nullptr) {
-    const TplMsg m{tpl + (size_t)mlen * ti, ts8 + 8 * (size_t)row, ts_off};
-    tm_sha512_preimage(h, s, p, m, mlen, c_tab.sha512_k);
-  } else {
-    tm_sha512_preimage(h, s, p, MatMsg{msg + (size_t)mlen * row}, mlen, c_tab.sha512_k);
-  }
-  sc_reduce(k, h);
-  signed_digits(kd + 64 * (size_t)row, k);
+  prep_row_finish<R>(S, a, base, r, st);
 }
 
 // Replaces verify_stage_scan_tabled (ops/ed25519.py:195), _sharded (:204)
@@ -243,8 +240,6 @@ __global__ void __launch_bounds__(kScanTabledBlock) ed25519_scan_tabled(
                   in ? tables + (size_t)vi * kTableInts : nullptr, &c_comb[0][0][0][0], out + 40 * (size_t)row);
   if (L.lane == 0) a_ok[row] = in ? a_tab[vi] : 0;
 }
-
-static inline int grid_tab(int n) { return (n + kTabBlock - 1) / kTabBlock; }
 
 cudaError_t set_comb(const void* host, size_t bytes) {
   if (bytes != sizeof(c_comb)) return cudaErrorInvalidValue;
@@ -280,13 +275,19 @@ cudaError_t set_constants_tabled(const void* host, size_t bytes) {
   return e;
 }
 
+template <int R>
+cudaError_t launch_prepare_tabled_at(const PrepArgs& a, cudaStream_t stream) {
+  if (a.tpl != nullptr && (a.ts_off < 0 || a.ts_off + 8 > a.mlen)) return cudaErrorInvalidValue;
+  ed25519_prepare_tabled<R><<<(a.n + R - 1) / R, R, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_prepare_tabled(const uint8_t* pk_all, const int32_t* idx, int v, const uint8_t* msg, int mlen,
                                   const uint8_t* tpl, int ntpl, const int32_t* tmpl_idx, const uint8_t* ts8,
                                   int ts_off, const uint8_t* sig, int n, int8_t* sd8, int8_t* kd, uint8_t* s_ok,
                                   cudaStream_t stream) {
-  ed25519_prepare_tabled<<<grid_tab(n), kTabBlock, 0, stream>>>(pk_all, idx, v, msg, mlen, tpl, ntpl, tmpl_idx,
-                                                                ts8, ts_off, sig, n, sd8, kd, s_ok);
-  return cudaGetLastError();
+  const PrepArgs a{pk_all, idx, v, msg, mlen, tpl, ntpl, tmpl_idx, ts8, ts_off, sig, n, sd8, kd, s_ok};
+  return launch_prepare_tabled_at<kPrepRows>(a, stream);
 }
 
 template <int G>

@@ -32,7 +32,6 @@ struct TmConstants {
   int32_t d2[10];
   int32_t sqrtm1[10];
   int32_t base[8][4][10];  // [1..8]B in cached form, from affine points
-  uint64_t sha512_k[80];
 };
 
 TM_FN void ge_identity(ge_p3& p) {

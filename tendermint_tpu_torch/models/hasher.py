@@ -5,19 +5,19 @@ Counterpart of the JAX package's ``models/hasher.py``. Every leaf is
 hashed in one launch of ``sha256_leaf_blocks`` (leaves of different
 block counts together, packed one after another into a flat buffer of
 their own blocks, so one long leaf does not pad the others to its
-length), then each inner level in one launch of
-``merkle_inner_level``, while the level is wider than
-``HOST_TAIL_WIDTH``; ``hashlib`` finishes the narrow top, where a
-launch costs more than the few hashes it would do. Pairing adjacent
-nodes and carrying an odd last one up is exactly the reference's
-split-point recursion (crypto/merkle.py).
+length), then the whole tree above them in one launch of
+``merkle_tree``: two launches a root, whatever its width. ``root``
+downloads the root's 32 bytes; ``tree`` downloads every level in one
+flat buffer and splits it. Pairing adjacent nodes and carrying an odd
+last one up is exactly the reference's split-point recursion
+(crypto/merkle.py).
 
 With a ``router`` (``parallel.topology.MeshRouter``) whose topology has
 placement, the leaf stage of a tree the router plans as collective runs
 per device (``_mesh_leaf_state``): slot [lo, hi) takes its leaves' own
 blocks, with the offsets rebased to 0, in one ``sha256_leaf_blocks``
 launch on its device; the (8, n) states are concatenated on the
-hasher's device and the inner levels run there, unrouted, as in the JAX
+hasher's device and the tree runs there, unrouted, as in the JAX
 engine. A failed routed leaf stage is answered by the single-device
 launch.
 
@@ -25,8 +25,10 @@ Not copied from the JAX module, which needs them for XLA's compiles:
 the leaf-count buckets and their padding rows, the blocking and
 background compiles, the cold-bucket and shape declines (the kernels
 take any leaf count and any block count, so leaves above 16 blocks stay
-on the device here) and the compile breaker. A failed launch raises;
-nothing answers from the host instead.
+on the device here), the compile breaker, and the host finish of the
+narrow top (the tree kernel takes every level). A failed launch raises;
+nothing answers from the host instead. ``host_levels`` builds the trees
+below ``crypto/merkle.py``'s device threshold with hashlib.
 """
 
 from __future__ import annotations
@@ -40,16 +42,10 @@ import torch
 from tendermint_tpu_torch.ops import sha256
 from tendermint_tpu_torch.utils.device import on_device, resolve_device
 
-# Inner levels at or below this width are finished by hashlib on the
-# host. A module attribute, read at each call, so tests can set it to 1
-# to run every level through the kernel.
-HOST_TAIL_WIDTH = 128
-
-
 def host_levels(level: List[bytes]) -> List[List[bytes]]:
     """`level` and every level above it up to the root, pairing adjacent
     nodes and carrying an odd last one up, with hashlib: the whole tree
-    of a small one (crypto/merkle.py) and the top of a large one."""
+    of one below crypto/merkle.py's device threshold."""
     levels = [level]
     while len(level) > 1:
         nxt = [hashlib.sha256(b"\x01" + level[i] + level[i + 1]).digest() for i in range(0, len(level) - 1, 2)]
@@ -113,27 +109,31 @@ class MerkleHasher:
         except Exception:
             return None
 
-    def device_levels(self, blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray) -> List[torch.Tensor]:
-        """Upload packed leaves and hash them: levels[l] the (8, width)
-        int32 states of level l on the device, down to the first width
-        <= HOST_TAIL_WIDTH (or one node)."""
+    def leaf_states(self, blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray) -> torch.Tensor:
+        """Upload packed leaves and hash them: the (8, n) int32 leaf
+        states on the hasher's device (routed per device where the router
+        plans the tree as collective)."""
         leaves = self._mesh_leaf_state(blocks, offsets, counts)
-        levels = [_leaf_launch(blocks, offsets, counts, self.device) if leaves is None else leaves]
-        with on_device(self.device):
-            while levels[-1].shape[1] > max(HOST_TAIL_WIDTH, 1):
-                levels.append(sha256.merkle_inner_level(levels[-1], levels[-1].shape[1]))
-        return levels
+        return _leaf_launch(blocks, offsets, counts, self.device) if leaves is None else leaves
 
     def root(self, items: Sequence[bytes]) -> bytes:
         """The merkle root of at least one leaf."""
         if not items:
             raise ValueError("MerkleHasher.root needs at least one leaf")
-        return host_levels(_digests(self.device_levels(*self.pack(items))[-1]))[-1][0]
+        leaves = self.leaf_states(*self.pack(items))
+        with on_device(self.device):
+            return _digests(sha256.merkle_tree(leaves, leaves.shape[1]))[0]
 
     def tree(self, items: Sequence[bytes]) -> List[List[bytes]]:
         """Every level as a list of digests, the leaves first and the root
         last: what the proofs' aunts are read from."""
         if not items:
             raise ValueError("MerkleHasher.tree needs at least one leaf")
-        levels = [_digests(lv) for lv in self.device_levels(*self.pack(items))]
-        return levels[:-1] + host_levels(levels[-1])
+        leaves = self.leaf_states(*self.pack(items))
+        with on_device(self.device):
+            flat = _digests(sha256.merkle_tree(leaves, leaves.shape[1], levels=True))
+        levels, off = [], 0
+        for w in sha256.tree_widths(leaves.shape[1]):
+            levels.append(flat[off:off + w])
+            off += w
+        return levels

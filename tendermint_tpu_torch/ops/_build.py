@@ -11,12 +11,13 @@ digest of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.
 
 After loading, the curve constants and the [1..8]B table (from the
-pure-Python oracle) and SHA-512's round constants are copied into the
-kernels' ``__constant__`` memory, and the tabled scan's 8-bit base comb
-(491,520 B, too large for ``__constant__``) into a ``__device__`` array,
-once per device, with the BLS12-381 field and curve constants
-(``ops/bls12.py`` constants_blob, from the pure-Python oracle). SHA-256's
-round constants are compiled in (``sha256.cuh``).
+pure-Python oracle) are copied into the kernels' ``__constant__``
+memory, and the tabled scan's 8-bit base comb (491,520 B, too large for
+``__constant__``) into a ``__device__`` array, once per device, with the
+BLS12-381 field and curve constants (``ops/bls12.py`` constants_blob,
+from the pure-Python oracle). The round constants of SHA-512 and SHA-256
+are compiled in (``sha512.cuh``, ``sha256.cuh``), immediates of the
+unrolled rounds.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("ed25519_kernels.cu", "ed25519_tabled.cu", "sha256_kernels.cu", "bls12_kernels.cu", "bindings.cu")
 HEADERS = ("fe25519.cuh", "divsteps.cuh", "ge25519.cuh", "ge25519_lanes.cuh", "lanes.cuh", "sc25519.cuh", "sha512.cuh",
-           "sha256.cuh", "fp381.cuh", "bls12_curve.cuh")
+           "prepare_tabled.cuh", "sha256.cuh", "fp381.cuh", "bls12_curve.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -122,7 +123,9 @@ def _declare(lib) -> None:
     lib.tm_ed25519_prepare_tabled.argtypes = [vp, vp, i32, vp, i32, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, vp]
     lib.tm_ed25519_scan_tabled.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp, vp, vp]
     lib.tm_sha256_leaf_blocks.argtypes = [vp, vp, vp, i32, i32, vp, vp]
-    lib.tm_merkle_inner_level.argtypes = [vp, i32, i32, vp, vp]
+    lib.tm_merkle_tree.argtypes = [vp, i32, i32, vp, i32, vp, i32, vp, i32, vp]
+    lib.tm_merkle_tree_layout.argtypes = [i32, vp]
+    lib.tm_merkle_tree_layout.restype = i32
     lib.tm_set_bls_constants.argtypes = [i32, vp, sz]
     lib.tm_bls12_lanes.argtypes = [vp, vp, vp, vp]
     lib.tm_bls12_lanes.restype = None
@@ -133,7 +136,7 @@ def _declare(lib) -> None:
     lib.tm_bls12_g1_aggregate.argtypes = [vp, vp, i32, i32, vp, vp, vp, vp]
     for fn in (lib.tm_set_constants, lib.tm_ed25519_prepare, lib.tm_ed25519_scan, lib.tm_ed25519_finish,
                lib.tm_set_comb, lib.tm_ed25519_build_tables, lib.tm_ed25519_prepare_tabled,
-               lib.tm_ed25519_scan_tabled, lib.tm_sha256_leaf_blocks, lib.tm_merkle_inner_level,
+               lib.tm_ed25519_scan_tabled, lib.tm_sha256_leaf_blocks, lib.tm_merkle_tree,
                lib.tm_set_bls_constants, lib.tm_bls12_pairing_check, lib.tm_bls12_map_to_g2,
                lib.tm_bls12_g1_aggregate):
         fn.restype = i32
@@ -141,15 +144,14 @@ def _declare(lib) -> None:
 
 def constants_blob() -> bytes:
     """The kernels' TmConstants struct (ge25519.cuh), packed on the host:
-    d, 2d, sqrt(-1), the cached [1..8]B table as int32 limbs, then
-    SHA-512's 80 round constants as uint64."""
-    from tendermint_tpu_torch.ops import curve, field, sha512
+    d, 2d, sqrt(-1) and the cached [1..8]B table as int32 limbs."""
+    from tendermint_tpu_torch.ops import curve, field
 
     limbs = field.to_limbs(curve.D) + field.to_limbs(curve.D2) + field.to_limbs(curve.SQRT_M1)
     for row in curve.base_table_ints():
         for c in row:
             limbs += field.to_limbs(c)
-    return struct.pack(f"<{len(limbs)}i", *limbs) + struct.pack("<80Q", *sha512.K)
+    return struct.pack(f"<{len(limbs)}i", *limbs)
 
 
 def comb_blob() -> bytes:

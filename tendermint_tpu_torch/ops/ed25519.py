@@ -254,7 +254,8 @@ def build_valset_tables(pubkeys: torch.Tensor):
 def materialize_sign_bytes(templates, tmpl_idx, ts8):
     """templates (T,W) u8, tmpl_idx (N,) int, ts8 (N,8) u8 -> (N,W) u8:
     row r is templates[tmpl_idx[r]] with ts8[r] at the timestamp offset
-    (plain only: the prepare kernel reads each byte where it lives)."""
+    (plain only: the prepare kernel splices the timestamp into the
+    template's words)."""
     rows = templates[tmpl_idx.long()].clone()
     rows[:, TIMESTAMP_OFFSET:TIMESTAMP_OFFSET + 8] = ts8
     return rows
@@ -282,10 +283,12 @@ def verify_stage_prepare_tabled(pk_all: torch.Tensor, sigs: torch.Tensor, *,
     s_ok (N,) bool). No decompression: the tables hold -A.
 
     The messages are ``msgs`` (N,M) u8, or ``templates`` (T,M) u8 with
-    ``tmpl_idx`` (N,) int32 and ``ts8`` (N,8) u8 (M > the timestamp
+    ``tmpl_idx`` (N,) int32 and ``ts8`` (N,8) u8 (M >= the timestamp
     offset + 8). ``idx`` (N,) int32, or None when row r is validator r.
     Indices must be in range (the caller checks them on the host; a
-    kernel row with one out of range reads nothing and is rejected)."""
+    kernel row with one out of range reads nothing and is rejected). On
+    the card pk_all and sigs must start 16-byte aligned and ts8 8-byte
+    aligned (the kernel reads them in 16- and 8-byte words)."""
     dev = sigs.device
     n = sigs.shape[0]
     v = pk_all.shape[0]
@@ -311,6 +314,9 @@ def verify_stage_prepare_tabled(pk_all: torch.Tensor, sigs: torch.Tensor, *,
             raise ValueError(f"templates {width} bytes wide: no room for the timestamp at {TIMESTAMP_OFFSET}")
     if not _route(dev):
         return prepare_tabled_plain(pk_all, sigs, idx, msgs, templates, tmpl_idx, ts8)
+    for t, name, align in ((pk_all, "pk_all", 16), (sigs, "sigs", 16), (ts8, "ts8", 8)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{name}: the kernel reads {align}-byte words; the tensor must start {align}-byte aligned")
     sd8 = torch.empty((n, 32), dtype=torch.int8, device=dev)
     kd = torch.empty((n, 64), dtype=torch.int8, device=dev)
     s_ok = torch.empty(n, dtype=torch.bool, device=dev)

@@ -1,6 +1,8 @@
 """The ed25519 kernels' arithmetic as host C++ (``csrc/ed25519_host.cc``
-over ``csrc/fe25519.cuh``, ``csrc/ge25519.cuh`` and
-``csrc/ge25519_lanes.cuh``), built with ``g++`` and loaded with ctypes.
+over ``csrc/fe25519.cuh``, ``csrc/ge25519.cuh``,
+``csrc/ge25519_lanes.cuh`` and the tabled prepare's
+``csrc/prepare_tabled.cuh``, ``sha512.cuh`` and ``sc25519.cuh``), built
+with ``g++`` and loaded with ctypes.
 
 Not a path of the port: the kernels run on the card only. This build runs
 the same formulas on the CPU, a row's lanes in turn over each stage, so
@@ -16,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
+from tendermint_tpu_torch.codec.signbytes import TIMESTAMP_OFFSET
 from tendermint_tpu_torch.ops.bls12_host import gxx
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -47,8 +50,14 @@ class HostEd25519:
         lib.ed_host_finish_row.argtypes = [vp, vp, i32, i32, vp]
         lib.ed_host_scan_tabled_row.argtypes = [vp, vp, vp, vp, i32]
         lib.ed_host_scan_tabled_row.restype = None
+        lib.ed_host_prepare_tabled.argtypes = [vp, vp, i32, vp, i32, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, vp,
+                                               i32]
+        lib.ed_host_sc_reduce.argtypes = [vp, vp]
+        lib.ed_host_sc_reduce.restype = None
+        lib.ed_host_scalar_digits.argtypes = [vp, vp, vp]
         for fn in (lib.ed_host_set_constants, lib.ed_host_fe_op, lib.ed_host_point_op, lib.ed_host_build_row,
-                   lib.ed_host_set_comb, lib.ed_host_decompress, lib.ed_host_invert, lib.ed_host_finish_row):
+                   lib.ed_host_set_comb, lib.ed_host_decompress, lib.ed_host_invert, lib.ed_host_finish_row,
+                   lib.ed_host_prepare_tabled, lib.ed_host_scalar_digits):
             fn.restype = i32
         blob = constants_blob()
         if lib.ed_host_set_constants(blob, len(blob)) != 0:
@@ -125,3 +134,36 @@ class HostEd25519:
         out = np.zeros((16, 8, 3, 10), dtype=np.int32)
         ok = self.lib.ed_host_build_row(out.ctypes.data, bytes(pk), lanes)
         return out, bool(ok)
+
+    def prepare_tabled(self, pk_all, sig, idx=None, msgs=None, templates=None, tmpl_idx=None, ts8=None,
+                       ts_off: int = TIMESTAMP_OFFSET, rows: int = 64):
+        """ed25519_prepare_tabled's steps with blocks of `rows` (32, 64 or
+        128), on numpy arrays as the wrapper's: (sd8 (N,32) int8, kd (N,64)
+        int8, s_ok (N,) bool, the rows' SHA-512 digests (N,64) uint8)."""
+        c = lambda a, t: None if a is None else np.ascontiguousarray(a, dtype=t)  # noqa: E731
+        pk, sg, ix = c(pk_all, np.uint8), c(sig, np.uint8), c(idx, np.int32)
+        ms, tp, ti, ts = c(msgs, np.uint8), c(templates, np.uint8), c(tmpl_idx, np.int32), c(ts8, np.uint8)
+        n = sg.shape[0]
+        width = (ms if ms is not None else tp).shape[1]
+        sd8, kd = np.zeros((n, 32), np.int8), np.zeros((n, 64), np.int8)
+        s_ok, digest = np.zeros(n, np.uint8), np.zeros((n, 64), np.uint8)
+        p = lambda a: None if a is None else a.ctypes.data  # noqa: E731
+        code = self.lib.ed_host_prepare_tabled(
+            p(pk), p(ix), pk.shape[0], p(ms), width, p(tp), 0 if tp is None else tp.shape[0], p(ti), p(ts), ts_off,
+            p(sg), n, p(sd8), p(kd), p(s_ok), p(digest), rows)
+        if code != 0:
+            raise ValueError(f"no host prepare with blocks of {rows} rows")
+        return sd8, kd, s_ok.astype(bool), digest
+
+    def sc_reduce(self, digest: bytes) -> bytes:
+        """sc_reduce_words of a 64-byte digest: its 32-byte value mod L."""
+        out = np.zeros(32, dtype=np.uint8)
+        self.lib.ed_host_sc_reduce(bytes(digest), out.ctypes.data)
+        return out.tobytes()
+
+    def scalar_digits(self, s: bytes):
+        """A 32-byte scalar's packed digits, unpacked: (nibbles (64,) int8,
+        base-256 (32,) int8, s < L)."""
+        nib, b256 = np.zeros(64, dtype=np.int8), np.zeros(32, dtype=np.int8)
+        ok = self.lib.ed_host_scalar_digits(bytes(s), nib.ctypes.data, b256.ctypes.data)
+        return nib, b256, bool(ok)

@@ -5,7 +5,7 @@ Counterpart of the JAX package's ``ops/sha256.py``. There, one
 compression per jitted graph kept XLA:CPU inside its fusion budget, so a
 leaf of k blocks took ``leaf_block_state`` and k - 1 calls of
 ``leaf_block_update``, and an inner level ``merkle_inner_first`` then
-``merkle_inner_tail``. Here each function is one kernel:
+``merkle_inner_tail``, a level at a time. Here each is one kernel:
 
 - ``leaf_block_states(blocks, counts, offsets)``: blocks (T, 64) uint8,
   the leaves pre-padded by ``pack_leaves`` one after another, offsets
@@ -14,11 +14,14 @@ leaf of k blocks took ``leaf_block_state`` and k - 1 calls of
   buffer holds each leaf's own blocks only. ``dense_to_flat`` turns the
   JAX package's dense (N, B, 64) layout (``pack_leaf_blocks``: every
   leaf padded to the longest) into this form;
-- ``merkle_inner_level(level, m)``: level (8, C) and the logical node
-  count m <= C -> (8, ceil(m/2)); column i is sha256(0x01 || left ||
-  right) of columns 2i and 2i+1 when 2i+1 < m, and column 2i carried up
-  unchanged when 2i == m-1 (the reference's split-point recursion is
-  exactly this pairing, level by level; see crypto/merkle.py);
+- ``merkle_tree(level, m, levels=False)``: the leaf states (8, C) and
+  the leaf count m <= C -> the root (8, 1), or with ``levels=True``
+  every level, leaves first, in one flat (8, total) at the offsets
+  ``tree_widths(m)`` gives, all in one launch. Node i of a level is
+  sha256(0x01 || left || right) of nodes 2i and 2i+1 of the level below,
+  or node 2i carried up unchanged when it is the last (the reference's
+  split-point recursion is exactly this pairing, level by level; see
+  crypto/merkle.py); ``inner_level_plain`` is one level of it;
 - ``sha256(msgs)``: (N, L) uint8 -> (N, 32) uint8 digests of
   uniform-length messages, through the leaf kernel over prefix-free
   padding.
@@ -155,6 +158,24 @@ def inner_level_plain(level: torch.Tensor, m: int) -> torch.Tensor:
     return _to_i32(out)
 
 
+def tree_widths(m: int) -> List[int]:
+    """The level widths of a tree of m >= 1 leaves, leaves first, up to
+    the root: width_{l+1} = ceil(width_l / 2)."""
+    widths = [int(m)]
+    while widths[-1] > 1:
+        widths.append((widths[-1] + 1) // 2)
+    return widths
+
+
+def merkle_tree_plain(level: torch.Tensor, m: int, levels: bool = False) -> torch.Tensor:
+    lv = level[:, :m]
+    out = [lv]
+    while lv.shape[1] > 1:
+        lv = inner_level_plain(lv, lv.shape[1])
+        out.append(lv)
+    return torch.cat(out, dim=1) if levels else lv.contiguous()
+
+
 # -- the wrappers ------------------------------------------------------------------
 
 
@@ -184,26 +205,35 @@ def leaf_block_states(blocks: torch.Tensor, counts: torch.Tensor, offsets: torch
     return state
 
 
-def merkle_inner_level(level: torch.Tensor, m: int) -> torch.Tensor:
-    """level (8, C) int32 node states and the logical count m (1 <= m
-    <= C) -> (8, ceil(m/2)) int32: the next level up, pairs hashed as
-    sha256(0x01 || left || right) and an odd last node carried."""
+def merkle_tree(level: torch.Tensor, m: int, levels: bool = False) -> torch.Tensor:
+    """level (8, C) int32 leaf states and the leaf count m (1 <= m <= C)
+    -> the root's state (8, 1) int32, or with ``levels=True`` every level
+    of the tree, leaves first, as one (8, sum(tree_widths(m))) int32:
+    pairs hashed as sha256(0x01 || left || right) and an odd last node
+    carried, level by level up to the root, in one launch."""
     dev = level.device
     _check(level, "level", (8, None), torch.int32, dev)
     c = level.shape[1]
     m = int(m)
     if not 1 <= m <= c:
-        raise ValueError(f"logical count {m} outside [1, {c}]")
+        raise ValueError(f"leaf count {m} outside [1, {c}]")
     if not _route(dev):
-        return inner_level_plain(level, m)
-    out_c = (m + 1) // 2
-    out = torch.empty((8, out_c), dtype=torch.int32, device=dev)
+        return merkle_tree_plain(level, m, levels)
+    import ctypes
+
     from tendermint_tpu_torch.ops._build import check
 
     lib = _lib(dev)
-    check(lib, lib.tm_merkle_inner_level(level.data_ptr(), c, m, out.data_ptr(), _stream(dev)),
-          "merkle_inner_level launch")
-    merkle_inner_level.launches += 1
+    total = sum(tree_widths(m))
+    out = torch.empty((8, total if levels else 1), dtype=torch.int32, device=dev)
+    chunk = ctypes.c_int()
+    cols = lib.tm_merkle_tree_layout(m, ctypes.byref(chunk))
+    scratch = torch.empty((8, cols), dtype=torch.int32, device=dev)
+    root = out.data_ptr() + 4 * (total - 1) if levels else out.data_ptr()
+    check(lib, lib.tm_merkle_tree(level.data_ptr(), c, m, out.data_ptr() if levels else None, total,
+                                  scratch.data_ptr(), cols, root, total if levels else 1, _stream(dev)),
+          "merkle_tree launch")
+    merkle_tree.launches += 1
     return out
 
 
@@ -241,7 +271,7 @@ def sha256(msgs: torch.Tensor) -> torch.Tensor:
 
 KERNELS = {
     "sha256_leaf_blocks": leaf_block_states,
-    "merkle_inner_level": merkle_inner_level,
+    "merkle_tree": merkle_tree,
 }
 for _fn in KERNELS.values():
     _fn.launches = 0

@@ -44,7 +44,6 @@ from tendermint_tpu_torch import ValidatorSet as PortValidatorSet
 from tendermint_tpu_torch.crypto import merkle
 from tendermint_tpu_torch.light import verifier as pver
 from tendermint_tpu_torch.light.types import SignedHeader
-from tendermint_tpu_torch.models import hasher
 from tendermint_tpu_torch.types import validator_set as pvs
 
 CHAIN = "light-chain"
@@ -56,9 +55,9 @@ NOW = T0 + 600 * SEC
 
 @pytest.fixture(autouse=True)
 def engine(monkeypatch):
-    """Every validator-set and header hash through the MerkleHasher."""
+    """Every validator-set and header hash through the MerkleHasher, the
+    whole tree through the tree kernel's plain version."""
     monkeypatch.setattr(merkle, "DEVICE_THRESHOLD", 2)
-    monkeypatch.setattr(hasher, "HOST_TAIL_WIDTH", 1)
 
 
 class Recording(TorchBatchVerifier):

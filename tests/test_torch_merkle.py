@@ -5,9 +5,11 @@
   minutes on a CPU), bit-identical at the (8, N) state seam; and the
   port's ``sha256`` against the JAX program of that name.
 - Roots, proofs and aunts of the port's ``crypto/merkle.py``, with the
-  device threshold lowered to 2, ``HOST_TAIL_WIDTH`` to 1 and
-  device="cpu" (so every level runs through the plain kernels), and at
-  the default threshold (hashlib), against the JAX package's host path.
+  device threshold lowered to 2 and device="cpu" (so every tree runs
+  through the plain versions of the leaf and tree kernels), and at the
+  default threshold (hashlib), against the JAX package's host path; the
+  ``MerkleHasher``'s ``root`` and ``tree`` against it at widths around
+  the tree kernel's chunks, one leaf and one tree call a root.
 - ``ValidatorSet.hash`` and ``Commit.hash`` against the JAX objects'.
 
 Inputs come from numpy seeds; the card-only test holds each kernel
@@ -46,28 +48,28 @@ from tendermint_tpu_torch.ops import sha256
 @pytest.fixture
 def counted(monkeypatch):
     """Counts the calls of the kernels' plain versions."""
-    calls = {"leaf": 0, "inner": 0}
-    leaf, inner = sha256.leaf_blocks_plain, sha256.inner_level_plain
+    calls = {"leaf": 0, "tree": 0}
+    leaf, tree = sha256.leaf_blocks_plain, sha256.merkle_tree_plain
 
     def count_leaf(*a):
         calls["leaf"] += 1
         return leaf(*a)
 
-    def count_inner(*a):
-        calls["inner"] += 1
-        return inner(*a)
+    def count_tree(*a):
+        calls["tree"] += 1
+        return tree(*a)
 
     monkeypatch.setattr(sha256, "leaf_blocks_plain", count_leaf)
-    monkeypatch.setattr(sha256, "inner_level_plain", count_inner)
+    monkeypatch.setattr(sha256, "merkle_tree_plain", count_tree)
     return calls
 
 
 @pytest.fixture
 def engine(monkeypatch, counted):
-    """Every tree of two or more leaves through the MerkleHasher, every
-    level through the kernels' plain versions; counts those calls."""
+    """Every tree of two or more leaves through the MerkleHasher, the
+    leaves and the whole tree through the kernels' plain versions; counts
+    those calls."""
     monkeypatch.setattr(merkle, "DEVICE_THRESHOLD", 2)
-    monkeypatch.setattr(hasher, "HOST_TAIL_WIDTH", 1)
     return counted
 
 
@@ -107,9 +109,15 @@ def test_inner_level_matches_jax_inner_first_and_tail(c, m):
     level = rng.integers(0, 1 << 32, (8, c), dtype=np.uint64).astype(np.uint32)
     mid = jsha.merkle_inner_first(jnp.asarray(level))
     want = np.asarray(jsha.merkle_inner_tail(mid, jnp.asarray(level), np.int32(m))).view(np.int32)
-    got = sha256.merkle_inner_level(torch.from_numpy(level.view(np.int32)), m)
-    assert tuple(got.shape) == (8, (m + 1) // 2)
-    np.testing.assert_array_equal(got.numpy(), want[:, : (m + 1) // 2])
+    flat = sha256.merkle_tree(torch.from_numpy(level.view(np.int32)), m, levels=True)
+    assert tuple(flat.shape) == (8, sum(sha256.tree_widths(m)))
+    np.testing.assert_array_equal(flat[:, :m].numpy(), level[:, :m].view(np.int32))
+    np.testing.assert_array_equal(flat[:, m:m + (m + 1) // 2].numpy(), want[:, : (m + 1) // 2])
+    # every level above, and the root alone
+    digests = [d.tobytes() for d in sha256.state_to_digests(flat.numpy())]
+    assert digests == [d for lv in hasher.host_levels(digests[:m]) for d in lv]
+    root = sha256.merkle_tree(torch.from_numpy(level.view(np.int32)), m)
+    assert tuple(root.shape) == (8, 1) and torch.equal(root, flat[:, -1:])
 
 
 @pytest.mark.parametrize("length", [0, 55, 56, 100])
@@ -192,9 +200,9 @@ def test_wrappers_check_their_inputs():
     level = torch.zeros((8, 5), dtype=torch.int32)
     for m in (0, 6):
         with pytest.raises(ValueError):
-            sha256.merkle_inner_level(level, m)
+            sha256.merkle_tree(level, m)
     with pytest.raises(TypeError):
-        sha256.merkle_inner_level(level.to(torch.int64), 5)
+        sha256.merkle_tree(level.to(torch.int64), 5)
     # a count past the blocks given is clamped, as in the kernel
     one = sha256.leaf_block_states(*sha256.dense_to_flat(blocks.view(2, 1, 64), torch.tensor([1, 9], dtype=torch.int32)))
     assert torch.equal(one[:, 0], one[:, 1])
@@ -235,9 +243,8 @@ def test_roots_proofs_and_aunts_match_jax(engine, name):
     items = tree_items(name)
     check_against_jax(items)
     # trees of two or more leaves ran through the engine: one leaf launch
-    # and one inner level launch per level, for the root and the proofs
-    depth = max(len(items) - 1, 0).bit_length()
-    assert engine == ({"leaf": 2, "inner": 2 * depth} if len(items) >= 2 else {"leaf": 0, "inner": 0})
+    # and one tree launch, for the root and for the proofs
+    assert engine == ({"leaf": 2, "tree": 2} if len(items) >= 2 else {"leaf": 0, "tree": 0})
 
 
 @pytest.mark.parametrize("name", sorted(TREES))
@@ -246,7 +253,41 @@ def test_host_route_roots_proofs_and_aunts_match_jax(counted, name):
     on the host: the same roots, proofs and aunts, and no kernel ran."""
     assert merkle.DEVICE_THRESHOLD == 1024
     check_against_jax(tree_items(name))
-    assert counted == {"leaf": 0, "inner": 0}
+    assert counted == {"leaf": 0, "tree": 0}
+
+
+# widths around the chunks the tree kernel can be compiled with (2B = 64
+# to 512 leaves), and 16,385, above (2B)^2 for chunks of 128, where the
+# card's top loops in global memory (tests/test_torch_merkle_tree_host.py
+# runs that schedule itself at every chunk size, 512 included)
+HASHER_N = (1, 2, 3, 5, 127, 128, 129, 1023, 1024, 1025, 16_385)
+
+
+@pytest.mark.parametrize("n", HASHER_N)
+def test_hasher_root_and_tree_match_jax(counted, n):
+    """MerkleHasher.root and .tree on the plain versions against the JAX
+    package's crypto/merkle.py (hashlib, no jit): the root, every level
+    against its host recursion, and the aunts of every proof."""
+    rng = np.random.default_rng(n)
+    items = [rng.bytes(int(k)) for k in rng.integers(0, 120, n)]
+    h = hasher.MerkleHasher("cpu")
+    levels = h.tree(items)
+    want_root, want_proofs = jmerkle.proofs_from_byte_slices(items)
+    assert h.root(items) == levels[-1][0] == want_root == jmerkle.hash_from_byte_slices(items)
+    assert [len(lv) for lv in levels] == sha256.tree_widths(n)
+    assert levels == hasher.host_levels([hashlib.sha256(b"\x00" + it).digest() for it in items])
+    assert merkle._aunts_from_levels(levels) == [p.aunts for p in want_proofs]
+    assert counted == {"leaf": 2, "tree": 2}
+
+
+def test_a_root_at_10000_leaves_is_one_leaf_and_one_tree_call(counted):
+    """The engine hashes a 10,000-leaf tree (ValidatorSet.hash's width)
+    with one call of each kernel's plain version: no level is left to
+    the host."""
+    rng = np.random.default_rng(10_000)
+    items = [rng.bytes(70) for _ in range(10_000)]
+    assert hasher.MerkleHasher("cpu").root(items) == jmerkle.hash_from_byte_slices(items)
+    assert counted == {"leaf": 1, "tree": 1}
 
 
 def test_proof_verify_rejects_a_wrong_leaf(engine):
@@ -265,16 +306,16 @@ def test_proof_verify_rejects_a_wrong_leaf(engine):
 @pytest.mark.parametrize("n", [1023, 1024])
 def test_default_threshold_routes_as_jax(monkeypatch, n):
     """Below 1,024 leaves hashlib, at 1,024 the engine (here its plain
-    versions), the same root either way; the engine's top is finished on
-    the host below HOST_TAIL_WIDTH."""
-    assert merkle.DEVICE_THRESHOLD == 1024 and hasher.HOST_TAIL_WIDTH == 128
+    versions), the same root either way; the engine hashes the whole
+    tree in one tree call."""
+    assert merkle.DEVICE_THRESHOLD == 1024
     calls = []
-    monkeypatch.setattr(sha256, "inner_level_plain",
-                        lambda lv, m, f=sha256.inner_level_plain: calls.append(m) or f(lv, m))
+    monkeypatch.setattr(sha256, "merkle_tree_plain",
+                        lambda lv, m, levels=False, f=sha256.merkle_tree_plain: calls.append(m) or f(lv, m, levels))
     rng = np.random.default_rng(n)
     items = [rng.bytes(50) for _ in range(n)]
     assert merkle.hash_from_byte_slices(items, device="cpu") == jmerkle.hash_from_byte_slices(items)
-    assert calls == ([] if n < 1024 else [1024, 512, 256])
+    assert calls == ([] if n < 1024 else [1024])
 
 
 def test_no_card_no_fallback():
@@ -337,7 +378,7 @@ def test_valset_and_commit_hash_match_jax(jax_set_and_commit, request, route):
     assert pvs.hash(device="cpu") == vs.hash()
     assert pc.hash(device="cpu") == commit.hash()
     if calls is not None:
-        assert calls == {"leaf": 2, "inner": 12}  # 64 leaves: six levels, each tree
+        assert calls == {"leaf": 2, "tree": 2}  # 64 leaves: one leaf and one tree call each
     assert pvs.hash() == vs.hash() and pc.hash() == commit.hash()  # memoised: no device asked for again
 
 
@@ -368,9 +409,7 @@ def test_sha256_kernels_match_their_plain_versions_on_card():
     level = sha256.leaf_block_states(*flat)
     assert torch.equal(level.cpu(), sha256.leaf_blocks_plain(*flat).cpu())
     m = len(items)
-    while m > 1:
-        nxt = sha256.merkle_inner_level(level, m)
-        assert torch.equal(nxt.cpu(), sha256.inner_level_plain(level, m).cpu())
-        level, m = nxt, (m + 1) // 2
-    assert sha256.state_to_digests(level.cpu().numpy())[0].tobytes() == jmerkle.hash_from_byte_slices(items)
-    assert sha256.launches() == {"sha256_leaf_blocks": 1, "merkle_inner_level": 11}
+    flat = sha256.merkle_tree(level, m, levels=True)
+    assert torch.equal(flat.cpu(), sha256.merkle_tree_plain(level, m, levels=True).cpu())
+    assert sha256.state_to_digests(flat[:, -1:].cpu().numpy())[0].tobytes() == jmerkle.hash_from_byte_slices(items)
+    assert sha256.launches() == {"sha256_leaf_blocks": 1, "merkle_tree": 1}

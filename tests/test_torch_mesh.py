@@ -324,7 +324,6 @@ def test_a_lane_that_raises_trips_its_breaker_and_the_answer_holds(batch, monkey
 
 @pytest.mark.parametrize("leaves", (2, 3, 129))
 def test_routed_merkle_hasher_equals_unrouted_and_hashlib(monkeypatch, leaves):
-    monkeypatch.setattr(port_hasher, "HOST_TAIL_WIDTH", 1)
     rng = np.random.default_rng(leaves)
     items = [rng.bytes(int(n)) for n in rng.choice([0, 11, 55, 56, 95, 200], leaves)]
     r = MeshRouter(DeviceTopology(["cpu"] * 3), min_rows=2)
