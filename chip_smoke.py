@@ -77,7 +77,12 @@ Phases (any failure raises and ends the run with a nonzero exit):
    just before and read just after (one leaf launch, one tree launch),
    CUDA events p50/p99 of 30 calls on fresh objects, the host clock
    split, and hashlib alone beside it; merkle_tree's registers, stack
-   frame and SASS.
+   frame and SASS. sha256_leaf_blocks at its six shapes (leaf_shapes:
+   the set's and the commit's own leaves, 10,000 transactions as merkle
+   leaves and 65,536 tx keys, each of 156 bytes or of 1-2,047), against
+   the plain version and hashlib; its time on the device alone as the
+   path launches it; bound and chain floor; its threads a block (from
+   the compiled instance's name), registers and stack frame.
 7. The light client at 10,000 validators: a trusted header h1, h2
    adjacent under the set S of phases 3-5, h4 two heights on under S'
    (S with three validators replaced), both signed here. verify(h1 ->
@@ -151,6 +156,14 @@ Phases (any failure raises and ends the run with a nonzero exit):
    turns: verify_commit, the BLS rows, the merkle root; the kernels alone
    on the device, one launch a stage against one a lane). A JSON line
    {"mesh": ...} holds the phase's counts, stats and times.
+10. A block's transactions and the mempool's tx keys: Txs.hash and every
+   Txs.proof at 10,000 payments-sized (156 B) and ragged (1-2,047 B)
+   transactions, root and aunts against a hashlib recursion, one leaf
+   and one tree launch a root; TxKeyHasher.keys_or_host at 65,536 of each,
+   against hashlib, one leaf launch a bundle and every row counted in
+   hash_device_rows. CUDA events p50/p99 and the host clock p50 on fresh
+   Txs and bundles, the host split (pack, upload, kernels, download) and hashlib alone; a JSON line {"transactions":
+   ...}.
 
 Before the last line it prints one JSON object with a row per kernel
 (launches, max_abs_err, ms, plain_ms, bound_ms, ...; launches_mesh_two_lanes
@@ -173,6 +186,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -804,7 +818,8 @@ def merkle_seams(sha, hasher, items):
     """Both kernels of one tree against their plain versions on the card:
     (leaf seam error, tree seam error over every level and the root
     alone, root)."""
-    b, o, c = (torch.from_numpy(a).cuda() for a in hasher.MerkleHasher().pack(items))
+    blocks, offsets, counts = hasher.MerkleHasher().pack(items)
+    b, o, c = (torch.from_numpy(a).cuda() for a in (blocks, offsets, counts))
     st = sha.leaf_block_states(b, c, o)
     e_leaf = seam_err(st, sha.leaf_blocks_plain(b, c, o))
     return (e_leaf, *tree_seams(sha, st))
@@ -908,6 +923,90 @@ def tree_bound(n: int):
     return 32 * n + 32, (n - 1) * 2 * SHA256_INNER_NODE_INSTR
 
 
+# sha256_leaf_blocks' six shapes (phase 6, phase 10, scripts/leaf_sweep.py):
+# the merkle leaves of a 10,000-validator set and of its commit, a block's
+# 10,000 transactions (Txs.hash, each tx a leaf) and a mempool bundle of
+# 65,536 (MAX_BUCKET) tx keys, the transactions payments transfers
+# (TX_LEN = 156 bytes, tendermint_tpu/abci/examples/payments.py:36) or
+# uniform in [1, 2,047] bytes (2,047: the longest tx the JAX tx-key hasher
+# keeps on its device, 33 blocks).
+N_TXS = 10_000
+N_TX_KEYS = 65_536
+TX_LEN = 156
+MAX_DEVICE_TX = 2047
+VALIDATOR_LEAF_LEN = 50  # Validator.hash_bytes
+COMMIT_LEAF_LENS = (95, 11)  # CommitSig.encode: a signature for the block or nil, an absent one
+
+
+def tx_bundle(rng, n: int, ragged: bool):
+    """n transactions of TX_LEN bytes, or of [1, MAX_DEVICE_TX] bytes,
+    sliced from one random buffer."""
+    lens = rng.integers(1, MAX_DEVICE_TX + 1, n) if ragged else np.full(n, TX_LEN)
+    buf = rng.bytes(int(lens.sum()))
+    ends = np.cumsum(lens).tolist()
+    return [buf[e - k:e] for e, k in zip(ends, lens.tolist())]
+
+
+def leaf_shapes(rng, valset_leaves=None, commit_leaves=None) -> dict:
+    """name -> (items, prefix length) of the six shapes. The merkle leaves
+    are the given ones, or random ones of their lengths (commit leaves for
+    the block, nil and absent at 90 / 5 / 5 %)."""
+    if valset_leaves is None:
+        valset_leaves = [rng.bytes(VALIDATOR_LEAF_LEN) for _ in range(N_VALS)]
+    if commit_leaves is None:
+        commit_leaves = [rng.bytes(COMMIT_LEAF_LENS[int(d >= 0.95)]) for d in rng.random(N_VALS)]
+    return {
+        "merkle_valset_10000x1": (valset_leaves, 1),
+        "merkle_commit_10000x1-2": (commit_leaves, 1),
+        "txs_hash_10000x156B": (tx_bundle(rng, N_TXS, False), 1),
+        "txs_hash_10000xU[1,2047]B": (tx_bundle(rng, N_TXS, True), 1),
+        "tx_keys_65536x156B": (tx_bundle(rng, N_TX_KEYS, False), 0),
+        "tx_keys_65536xU[1,2047]B": (tx_bundle(rng, N_TX_KEYS, True), 0),
+    }
+
+
+def leaf_bound(counts: np.ndarray) -> dict:
+    """sha256_leaf_blocks' bound and chain floor for rows of `counts`
+    blocks: the blocks, offsets and counts read once and the states
+    written once, the compressions' instructions at the 32-bit integer
+    rate; the longest row's chain at two cycles an instruction."""
+    rows, blocks = int(counts.shape[0]), int(counts.sum())
+    io = blocks * 64 + rows * (4 + 4 + 32)
+    ops = sha256_leaf_ops(blocks, rows)
+    bytes_s, ops_s = io / HBM_BYTES_PER_S, ops / INT32_MAD_OPS_PER_S
+    longest = int(counts.max())
+    return {"rows": rows, "blocks": blocks, "longest_row_blocks": longest, "bytes": io, "ops": ops,
+            "bound_ms": 1e3 * max(bytes_s, ops_s), "bound_by": "bytes" if bytes_s > ops_s else "operations",
+            "chain_floor_ms": chain_floor_ms(longest * SHA256_DATA_BLOCK_INSTR - SHA256_FIRST_ROUND_FOLD)}
+
+
+def leaf_shape_checks(sha, shapes: dict) -> dict:
+    """sha256_leaf_blocks at each shape: the kernel against the plain
+    version, exactly at the (8, N) seam, and its digests against hashlib;
+    its time on the device alone; the bound and chain floor."""
+    out = {}
+    for name, (items, prefix) in shapes.items():
+        t0 = time.perf_counter()
+        blocks, offsets, counts = sha.pack_leaves(items, prefix_len=prefix)
+        b, o, c = (torch.from_numpy(a).cuda() for a in (blocks, offsets, counts))
+        want = sha.leaf_blocks_plain(b, c, o)
+        got = sha.leaf_block_states(b, c, o)
+        err = seam_err(got, want)
+        digests = sha.state_to_digests(got.cpu().numpy())
+        pre = bytes(prefix)
+        require(err == 0 and all(d.tobytes() == hashlib.sha256(pre + it).digest() for d, it in zip(digests, items)),
+                f"sha256_leaf_blocks at {name}: identical to the plain version ({err}), digests = hashlib's")
+        row = leaf_bound(counts)
+        row.update(max_abs_err=err, ms_device_only=device_ms(lambda: sha.leaf_block_states(b, c, o), reps=10))
+        out[name] = row
+        print(f"  sha256_leaf_blocks {name}: {row['blocks']} blocks in {row['rows']} rows (longest "
+              f"{row['longest_row_blocks']}), identical to the plain version, digests = hashlib; "
+              f"{row['ms_device_only']:.4f} ms on the device alone"
+              + f"; bound {row['bound_ms']:.5f} ms by {row['bound_by']}, chain floor {row['chain_floor_ms']:.4f} ms "
+              f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def phase6(vs, commit, card):
     """The merkle kernels: seams, roots and aunts, launch counts and
     times. Returns the two kernels' rows of the JSON line."""
@@ -989,10 +1088,10 @@ def phase6(vs, commit, card):
                               lambda o: o.hash()),
         "Commit.hash": (lambda: fresh(commit), lambda o: [cs.encode() for cs in o.signatures], lambda o: o.hash()),
     }
-    out = {}
+    out, tree_leaves = {}, {}
     for name, (make, leaves_of, run) in trees.items():
         obj = make()
-        leaves = leaves_of(obj)
+        leaves = tree_leaves[name] = leaves_of(obj)
         root, aunts = host_tree(leaves)
         sha.reset_launches()
         got = run(obj)
@@ -1030,6 +1129,11 @@ def phase6(vs, commit, card):
               f"{out[name]['tree_levels_ms']:.4f} ms); back-to-back calls with the host's launch cost: leaf "
               f"{out[name]['leaf_call_ms']:.4f} ms, tree {out[name]['tree_call_ms']:.4f} ms")
 
+    # sha256_leaf_blocks at its six shapes, the set's and commit's own
+    # leaves first
+    t1 = time.perf_counter()
+    shapes = leaf_shape_checks(sha, leaf_shapes(rng, tree_leaves["ValidatorSet.hash"], tree_leaves["Commit.hash"]))
+    print(f"  sha256_leaf_blocks at its six shapes ({time.perf_counter() - t1:.1f} s)")
     vsh, ch = out["ValidatorSet.hash"], out["Commit.hash"]
     rows = {}
     for name, key, replaces, also in (
@@ -1067,6 +1171,15 @@ def phase6(vs, commit, card):
                                   else SHA256_INNER_NODE_INSTR),
             sass_static_opcodes=sass,
         )
+        if name == "sha256_leaf_blocks":
+            row.update(shapes=shapes, chain_floor_ms=shapes["merkle_valset_10000x1"]["chain_floor_ms"],
+                       max_abs_err=max(row["max_abs_err"], *(v["max_abs_err"] for v in shapes.values())),
+                       max_abs_err_by_input={**errs[name], **{k: v["max_abs_err"] for k, v in shapes.items()}},
+                       **ptxas_usage(name))
+            # the kernel is compiled at one block size, its instance's
+            # template argument: sha256_leaf_blocks<T> mangles as ...ILiTE...
+            t = re.search(r"ILi(\d+)E", row.get("entry", ""))
+            row["threads_a_block"] = int(t.group(1)) if t else None
         if name == "merkle_tree":
             levels = len(sha.tree_widths(vsh["rows"])) - 1
             row.update(ms_device_only_every_level=vsh["tree_levels_ms"], commit_hash_rows=ch["rows"],
@@ -1083,6 +1196,10 @@ def phase6(vs, commit, card):
                   f"(static; " + ", ".join(f"{k} {v}" for k, v in top) + f"; local memory {local})")
         else:
             print(f"  {name}: no cuobjdump in the toolkit, SASS not counted")
+    lr = rows["sha256_leaf_blocks"]
+    print(f"  sha256_leaf_blocks: {lr['threads_a_block']} threads a block, {lr.get('registers')} registers, "
+          f"{lr.get('stack_frame')} bytes of stack frame, {lr.get('spill_stores')} / {lr.get('spill_loads')} bytes "
+          f"of spill stores / loads ({card})")
     tr = rows["merkle_tree"]
     print(f"  merkle_tree: {tr.get('registers')} registers, {tr.get('stack_frame')} bytes of stack frame, "
           f"{tr.get('spill_stores')} / {tr.get('spill_loads')} bytes of spill stores / loads; bound "
@@ -1426,8 +1543,9 @@ def kernel_fp_muls(host, stage) -> int:
 
 def ptxas_usage(kernel: str) -> dict:
     """Registers, stack frame, spill stores and loads and cumulative stack
-    (bytes) of `kernel` as -Xptxas -v reported them for the current build
-    (its first instance: each kernel is compiled at one G)."""
+    (bytes) of `kernel` as -Xptxas -v reported them for the current build,
+    and the mangled name of the instance (its first: each kernel is
+    compiled at one G)."""
     import re
 
     from tendermint_tpu_torch.ops import _build
@@ -1450,6 +1568,7 @@ def ptxas_usage(kernel: str) -> dict:
         if m:
             stack = re.search(r"(\d+) bytes cumulative stack size", line)
             out["registers"], out["cumulative_stack"] = int(m.group(1)), int(stack.group(1)) if stack else 0
+            out["entry"] = entry
             entry = None
     return out
 
@@ -2300,6 +2419,121 @@ def phase9(vs, vs_b, commit, bid, card, kernels, bls_rows, verifier_t, verifier_
     print(f"phase 9: passed in {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 10: a block's transactions and the mempool's tx keys ---------------
+
+
+def leaf_split(sha, pack, items, tree: bool, reps: int = 10) -> dict:
+    """The host clock split of one bundle through the leaf kernel (and
+    the tree kernel, for a root), medians of `reps`: the pack, the upload
+    of the blocks, offsets and counts (as models/hasher.py sends them),
+    the kernels, the download of the root's or every row's digest
+    (sha256.digest_list)."""
+    parts = {"pack": [], "upload": [], "kernels": [], "download": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        blocks, offsets, counts = pack(list(items))
+        t1 = time.perf_counter()
+        n = counts.shape[0]
+        b, o, c = (torch.from_numpy(a).cuda() for a in (blocks, offsets, counts))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        st = sha.leaf_block_states(b, c, o)
+        if tree:
+            st = sha.merkle_tree(st, n)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        sha.digest_list(st)
+        t4 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key].append(1e3 * dt)
+    return {key: float(np.median(v)) for key, v in parts.items()}
+
+
+def phase10(card, kernels):
+    """Txs.hash and proofs at 10,000 transactions and TxKeyHasher.keys at
+    65,536, payments-sized and ragged: against hashlib, launch counts, p50
+    on fresh objects and bundles, the host split, hashlib alone. Fills in
+    sha256_leaf_blocks' and merkle_tree's launches on these paths."""
+    from tendermint_tpu_torch import TxKeyHasher, Txs
+    from tendermint_tpu_torch.crypto import merkle
+    from tendermint_tpu_torch.ingest import hashing
+    from tendermint_tpu_torch.models import hasher
+    from tendermint_tpu_torch.ops import sha256 as sha
+
+    rng = np.random.default_rng(SEED + 10)
+    report = {}
+    for kind in ("payments", "ragged"):
+        t0 = time.perf_counter()
+        items = tx_bundle(rng, N_TXS, kind == "ragged")
+        root, aunts = host_tree(items)
+        sha.reset_launches()
+        txs = Txs(items)
+        got = txs.hash()
+        torch.cuda.synchronize()
+        n_hash = sha.launches()
+        proofs = [txs.proof(i) for i in range(len(items))]
+        torch.cuda.synchronize()
+        n_all = sha.launches()
+        require(got == root, f"Txs.hash of {N_TXS} {kind} txs equals hashlib's recursion")
+        require(n_hash == {"sha256_leaf_blocks": 1, "merkle_tree": 1},
+                f"Txs.hash at {N_TXS}: one leaf launch and one tree launch: {n_hash}")
+        require(n_all == {"sha256_leaf_blocks": 2, "merkle_tree": 2},
+                f"Txs.proof built every proof from one more leaf and tree launch: {n_all}")
+        require([p.proof.aunts for p in proofs] == aunts and all(p.validate(root) is None for p in proofs[::97]),
+                f"every Txs proof's aunts equal hashlib's, and proofs validate against the root ({kind})")
+        p50, p99, wall = events_and_wall(lambda t: t.hash(), lambda: Txs(items), reps=20)
+        split = leaf_split(sha, hasher.MerkleHasher().pack, items, tree=True)
+        saved = merkle.DEVICE_THRESHOLD
+        merkle.DEVICE_THRESHOLD = len(items) + 1
+        try:
+            t = time.perf_counter()
+            alone = [Txs(items).hash() for _ in range(5)]
+            split["hashlib_alone"] = 1e3 * (time.perf_counter() - t) / 5
+        finally:
+            merkle.DEVICE_THRESHOLD = saved
+        require(alone[0] == root, "hashlib's Txs root equals the card's")
+        report[f"Txs.hash {kind}"] = dict(launches=n_hash, launches_with_proofs=n_all, p50=p50, p99=p99, wall=wall,
+                                          split=split)
+        print(f"phase 10: Txs.hash of {N_TXS} {kind} txs ({sum(map(len, items))} B): root and every proof's "
+              f"aunts = hashlib, launches {n_hash} ({n_all} with the proofs); 20 calls on fresh Txs, CUDA events "
+              f"p50 {p50:.3f} ms p99 {p99:.3f} ms, host clock p50 {wall:.3f} ms ({time.perf_counter() - t0:.1f} s; "
+              f"{card})")
+        print("  host clock split (medians of 10): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+
+        t0 = time.perf_counter()
+        bundle = tx_bundle(rng, N_TX_KEYS, kind == "ragged")
+        want = hashing.host_keys(bundle)
+        h = TxKeyHasher()
+        sha.reset_launches()
+        keys = h.keys_or_host(bundle, threshold=1)
+        torch.cuda.synchronize()
+        n_keys = sha.launches()
+        require(keys == want, f"TxKeyHasher keys of {N_TX_KEYS} {kind} txs equal hashlib's")
+        require(n_keys == {"sha256_leaf_blocks": 1, "merkle_tree": 0},
+                f"TxKeyHasher: one leaf launch a bundle: {n_keys}")
+        st = h.stats()
+        require(st["hash_device_rows"] == N_TX_KEYS and st["hash_device_bundles"] == 1 and st["hash_host_rows"] == 0,
+                f"TxKeyHasher counted every row on the device: {st}")
+        p50, p99, wall = events_and_wall(h.keys, lambda: list(bundle), reps=10)
+        split = leaf_split(sha, hashing.pack_msg_blocks, bundle, tree=False)
+        t = time.perf_counter()
+        for _ in range(3):
+            hashing.host_keys(bundle)
+        split["hashlib_alone"] = 1e3 * (time.perf_counter() - t) / 3
+        report[f"TxKeyHasher.keys {kind}"] = dict(launches=n_keys, stats=st, p50=p50, p99=p99, wall=wall,
+                                                  split=split)
+        print(f"  TxKeyHasher.keys of {N_TX_KEYS} {kind} txs ({sum(map(len, bundle))} B): = hashlib, launches "
+              f"{n_keys}, stats {st}; 10 calls on fresh bundles, CUDA events p50 {p50:.3f} ms p99 {p99:.3f} ms, "
+              f"host clock p50 {wall:.3f} ms ({time.perf_counter() - t0:.1f} s; {card})")
+        print("  host clock split (medians of 10): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    lr = kernels["sha256_leaf_blocks"]
+    lr.update(launches_txs_hash=report["Txs.hash ragged"]["launches"]["sha256_leaf_blocks"],
+              launches_tx_keys=report["TxKeyHasher.keys ragged"]["launches"]["sha256_leaf_blocks"],
+              transactions=report)
+    kernels["merkle_tree"]["launches_txs_hash"] = report["Txs.hash ragged"]["launches"]["merkle_tree"]
+    print(json.dumps({"transactions": report}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2723,6 +2957,7 @@ def main() -> int:
     kernels.update(bls_rows8)
     phase9(vs, vs_b, commit, bid, card, kernels, bls_rows, verifier_t, verifier_g,
            {"generic": (p50, p99), "tabled": (t50, t99)})
+    phase10(card, kernels)
     for k in kernels.values():
         muls = "" if k["field_muls_per_row"] is None else f", {k['field_muls_per_row']} field muls/row"
         print(f"  {k['name']}: {k['ms']:.4f} ms ({k['ms_device_only']:.4f} on the device alone; plain "

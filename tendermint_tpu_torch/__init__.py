@@ -20,7 +20,10 @@ keys or of BLS and ed25519 keys together; and the mesh runtime
 (``parallel/``: ``DeviceTopology``, ``MeshRouter``), which splits a
 bundle of rows over several devices for the verifier
 (``TorchBatchVerifier(router=...)``, ``MeshRoutedVerifier``), the BLS
-engine and the merkle engine, with the tally summed on the host. The
+engine and the merkle engine, with the tally summed on the host; and
+the block's data hash (``Txs.hash`` and proofs, ``Data``;
+``types/tx.py``) through the same merkle kernels, and the mempool's tx
+keys in bundles through the leaf kernel (``ingest.TxKeyHasher``). The
 package imports torch,
 numpy and the standard library, never jax and nothing of
 tendermint_tpu. Entry points run on the card unless the caller passes
@@ -45,6 +48,7 @@ from tendermint_tpu_torch.crypto.bls import (
     make_bls_provider,
 )
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey, Ed25519PubKey
+from tendermint_tpu_torch.ingest import TxKeyHasher
 from tendermint_tpu_torch.models.bls import BLSEngine
 from tendermint_tpu_torch.models.hasher import MerkleHasher
 from tendermint_tpu_torch.models.verifier import VerifierModel
@@ -58,7 +62,8 @@ from tendermint_tpu_torch.ops.ed25519 import (
 )
 from tendermint_tpu_torch.parallel import DeviceTopology, MeshRouter
 from tendermint_tpu_torch.types.aggregate import AggregatedCommit, aggregate_commit_votes
-from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, Header, PartSetHeader
+from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, Data, Header, PartSetHeader
+from tendermint_tpu_torch.types.tx import TxProof, Txs
 from tendermint_tpu_torch.types.validator import Validator
 from tendermint_tpu_torch.types.validator_set import (
     ErrInvalidCommit,
@@ -82,6 +87,7 @@ __all__ = [
     "Commit",
     "CommitSig",
     "CommitVerifySpec",
+    "Data",
     "DeviceTopology",
     "Ed25519PrivKey",
     "Ed25519PubKey",
@@ -94,6 +100,9 @@ __all__ = [
     "MeshRouter",
     "PartSetHeader",
     "TorchBatchVerifier",
+    "TxKeyHasher",
+    "TxProof",
+    "Txs",
     "Validator",
     "ValidatorSet",
     "VerifierModel",

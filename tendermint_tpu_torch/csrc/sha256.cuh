@@ -1,6 +1,7 @@
-// SHA-256's compression function for one thread, and the steps of
-// merkle_tree (sha256_kernels.cu), which hashes every inner level of a
-// tree in one launch.
+// SHA-256's compression function for one thread, the steps of
+// sha256_leaf_blocks (a leaf's blocks a thread) and those of merkle_tree
+// (sha256_kernels.cu), which hashes every inner level of a tree in one
+// launch.
 //
 // The compression is the counterpart of the JAX package's ops/sha256.py
 // _compress: 64 rounds of 32-bit adds, rotates and logic on eight live
@@ -22,6 +23,13 @@
 //                global memory while they are wider than 2B (a ping-pong
 //                between two regions of the scratch), then one chunk in
 //                shared memory up to the root.
+//
+// sha256_leaf_blocks' step, for thread i of a launch:
+//
+//   leaf_thread  row i: its offset and count clamped to the buffer, its
+//                blocks compressed in a chain whose next block is copied
+//                into a stage of its own before the current one's rounds
+//                (leaf_chain), its state to column i.
 //
 // Everything here is static or inline, so each includer keeps its own
 // copy. Without nvcc (csrc/sha256_host.cc, g++) the same functions
@@ -105,6 +113,81 @@ SHA_FN void sha256_compress(uint32_t st[8], uint32_t w[16]) {
   st[5] += f;
   st[6] += g;
   st[7] += h;
+}
+
+// -- sha256_leaf_blocks -----------------------------------------------------
+
+// A call's arguments. Row r's counts[r] blocks start at block offsets[r]
+// of the flat (total, 64) buffer; its state goes to column r of the (8,
+// n) output, word k at k * n + r.
+struct LeafArgs {
+  const uint8_t* blocks;  // (total, 64), 16-byte aligned
+  const int32_t* offsets;
+  const int32_t* counts;
+  int n;
+  int total;
+  uint32_t* state;
+};
+
+// A word of the host-written arrays, read once (the read-only path).
+SHA_FN int32_t sha256_ld(const int32_t* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+SHA_FN uint32_t sha256_bswap(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(x, 0, 0x0123);
+#else
+  return __builtin_bswap32(x);
+#endif
+}
+
+// A thread's two stages of a block. `Stages` provides fetch(s, block):
+// start copying the block's 64 bytes into stage s; commit(): close the
+// copies started since the last commit into a group; wait_prev(): wait
+// for every group but the newest; words(s, w): stage s as the block's 16
+// big-endian words. The device's (sha256_kernels.cu SmemStages) copy into
+// shared memory with cp.async, the host's (sha256_host.cc) with memcpy.
+//
+// st = the state after `count` blocks from `p`. Software-pipelined: block
+// b + 1's copy starts before block b's 64 rounds, so its latency (several
+// hundred cycles from device memory) runs under a compression instead of
+// before it; only the first block's is exposed. The copy lands in shared
+// memory, not in registers: no register holds the next block across the
+// rounds, so ptxas has no reason to sink its loads towards their use (it
+// sank a prefetch into 16 registers to the rounds' last sixth).
+template <class Stages>
+SHA_FN void leaf_chain(uint32_t st[8], const uint8_t* p, int count, Stages& s) {
+  sha256_init(st);
+  if (count > 0) s.fetch(0, p);
+  s.commit();
+  for (int b = 0; b < count; ++b) {
+    if (b + 1 < count) s.fetch((b + 1) & 1, p + (size_t)(b + 1) * 64);
+    s.commit();
+    s.wait_prev();
+    uint32_t w[16];
+    s.words(b & 1, w);
+    sha256_compress(st, w);
+  }
+}
+
+// Row i. An offset outside [0, total] takes no block, a count is clamped
+// to [0, the blocks left from the offset]; a row that takes none keeps the
+// initial state.
+template <class Stages>
+SHA_FN void leaf_thread(const LeafArgs& a, int row, Stages& s) {
+  const int start = sha256_ld(a.offsets + row);
+  const int limit = start >= 0 && start <= a.total ? a.total - start : 0;
+  int count = sha256_ld(a.counts + row);
+  count = count < 0 ? 0 : (count > limit ? limit : count);
+  uint32_t st[8];
+  leaf_chain(st, a.blocks + (size_t)(count ? start : 0) * 64, count, s);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a.state[(size_t)k * a.n + row] = st[k];
 }
 
 // st = the state words of sha256(0x01 || left || right), the children

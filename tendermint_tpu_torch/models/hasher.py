@@ -12,14 +12,17 @@ flat buffer and splits it. Pairing adjacent nodes and carrying an odd
 last one up is exactly the reference's split-point recursion
 (crypto/merkle.py).
 
+``leaf_states`` is the one leaf stage of the port's SHA-256 users: this
+hasher's and the tx-key hasher's (``ingest/hashing.py``).
+
 With a ``router`` (``parallel.topology.MeshRouter``) whose topology has
 placement, the leaf stage of a tree the router plans as collective runs
-per device (``_mesh_leaf_state``): slot [lo, hi) takes its leaves' own
+per device (``_mesh_leaf_states``): slot [lo, hi) takes its leaves' own
 blocks, with the offsets rebased to 0, in one ``sha256_leaf_blocks``
 launch on its device; the (8, n) states are concatenated on the
 hasher's device and the tree runs there, unrouted, as in the JAX
-engine. A failed routed leaf stage is answered by the single-device
-launch.
+engine. A failed routed leaf stage is answered by the
+single-device launch.
 
 Not copied from the JAX module, which needs them for XLA's compiles:
 the leaf-count buckets and their padding rows, the blocking and
@@ -56,12 +59,6 @@ def host_levels(level: List[bytes]) -> List[List[bytes]]:
     return levels
 
 
-def _digests(state: torch.Tensor) -> List[bytes]:
-    """(8, n) device states -> n 32-byte digests."""
-    buf = sha256.state_to_digests(state.cpu().numpy()).tobytes()
-    return [buf[i:i + 32] for i in range(0, len(buf), 32)]
-
-
 def _leaf_launch(blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Upload packed leaves to `dev` and launch the leaf kernel there:
     the (8, n) int32 states on `dev`."""
@@ -70,6 +67,38 @@ def _leaf_launch(blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray, de
         if dev.type == "cuda":
             b, o, c = b.to(dev), o.to(dev), c.to(dev)
         return sha256.leaf_block_states(b, c, o)
+
+
+def _mesh_leaf_states(router, blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray, dev: torch.device):
+    """The leaf level split over the router's devices: the (8, n) states
+    on `dev`, or None to take the single-device leaf launch. Leaf digests
+    are independent of each other, so the concatenation equals the single
+    launch's states."""
+    if router is None or not router.topology.has_placement:
+        return None
+    plan = router.plan(counts.shape[0])
+    if not plan.collective:
+        return None
+
+    def dispatch(s):
+        first = int(offsets[s.lo])
+        nb = int(counts[s.lo:s.hi].sum())
+        return _leaf_launch(blocks[first:first + nb], (offsets[s.lo:s.hi] - first).astype(np.int32),
+                            counts[s.lo:s.hi], s.device)
+
+    try:
+        return router.run(plan, dispatch, lambda outs: torch.cat([o.to(dev) for o in outs], dim=1))
+    except Exception:
+        return None
+
+
+def leaf_states(blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray, dev: torch.device,
+                router=None) -> torch.Tensor:
+    """Upload packed rows (``sha256.pack_leaves``) and hash them: the (8,
+    n) int32 states on `dev`, in one leaf launch there, or one a device
+    where `router` plans the rows as collective."""
+    states = _mesh_leaf_states(router, blocks, offsets, counts, dev)
+    return _leaf_launch(blocks, offsets, counts, dev) if states is None else states
 
 
 class MerkleHasher:
@@ -86,35 +115,11 @@ class MerkleHasher:
         blocks (``sha256.pack_leaves``)."""
         return sha256.pack_leaves(items)
 
-    def _mesh_leaf_state(self, blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray):
-        """The leaf level split over the router's devices: the (8, n)
-        states on the hasher's device, or None to take the single-device
-        leaf launch. Leaf digests are independent of each other, so the
-        concatenation equals the single launch's states."""
-        r = self.router
-        if r is None or not r.topology.has_placement:
-            return None
-        plan = r.plan(counts.shape[0])
-        if not plan.collective:
-            return None
-
-        def dispatch(s):
-            first = int(offsets[s.lo])
-            nb = int(counts[s.lo:s.hi].sum())
-            return _leaf_launch(blocks[first:first + nb], (offsets[s.lo:s.hi] - first).astype(np.int32),
-                                counts[s.lo:s.hi], s.device)
-
-        try:
-            return r.run(plan, dispatch, lambda outs: torch.cat([o.to(self.device) for o in outs], dim=1))
-        except Exception:
-            return None
-
     def leaf_states(self, blocks: np.ndarray, offsets: np.ndarray, counts: np.ndarray) -> torch.Tensor:
         """Upload packed leaves and hash them: the (8, n) int32 leaf
         states on the hasher's device (routed per device where the router
         plans the tree as collective)."""
-        leaves = self._mesh_leaf_state(blocks, offsets, counts)
-        return _leaf_launch(blocks, offsets, counts, self.device) if leaves is None else leaves
+        return leaf_states(blocks, offsets, counts, self.device, self.router)
 
     def root(self, items: Sequence[bytes]) -> bytes:
         """The merkle root of at least one leaf."""
@@ -122,7 +127,7 @@ class MerkleHasher:
             raise ValueError("MerkleHasher.root needs at least one leaf")
         leaves = self.leaf_states(*self.pack(items))
         with on_device(self.device):
-            return _digests(sha256.merkle_tree(leaves, leaves.shape[1]))[0]
+            return sha256.digest_list(sha256.merkle_tree(leaves, leaves.shape[1]))[0]
 
     def tree(self, items: Sequence[bytes]) -> List[List[bytes]]:
         """Every level as a list of digests, the leaves first and the root
@@ -131,7 +136,7 @@ class MerkleHasher:
             raise ValueError("MerkleHasher.tree needs at least one leaf")
         leaves = self.leaf_states(*self.pack(items))
         with on_device(self.device):
-            flat = _digests(sha256.merkle_tree(leaves, leaves.shape[1], levels=True))
+            flat = sha256.digest_list(sha256.merkle_tree(leaves, leaves.shape[1], levels=True))
         levels, off = [], 0
         for w in sha256.tree_widths(leaves.shape[1]):
             levels.append(flat[off:off + w])

@@ -1,12 +1,14 @@
-"""The merkle engine's device code as host C++ (``csrc/sha256_host.cc``
+"""The SHA-256 engine's device code as host C++ (``csrc/sha256_host.cc``
 over ``csrc/sha256.cuh``), built with ``g++`` and loaded with ctypes.
 
 Not a path of the port: the kernels run on the card only. This build runs
-merkle_tree's own steps on the CPU, a block's threads in turn over each
-step and the blocks in turn, the last of them finishing the tree, so the
-tests can hold the chunk and top schedule against the plain versions and
-hashlib without a card, at every chunk size the kernel can be compiled
-with.
+the kernels' own steps on the CPU: sha256_leaf_blocks' thread step (the
+clamps, the chain that copies the next block into a stage of its own
+before the current one's rounds, here with memcpy) for every thread in
+turn, and merkle_tree's steps, a block's threads in turn over each step
+and the blocks in turn, the last of them finishing the tree. So the tests can hold them against the plain
+versions and hashlib without a card, the tree at every chunk size the
+kernel can be compiled with.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ class HostSHA256:
                        check=True, capture_output=True, timeout=300)
         lib = ctypes.CDLL(str(out))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.sha_host_leaf_blocks.argtypes = [vp, vp, vp, i32, i32, vp]
+        lib.sha_host_leaf_blocks.restype = None
         lib.sha_host_inner.argtypes = [vp, vp, vp]
         lib.sha_host_inner.restype = None
         lib.sha_host_tree_scratch.argtypes = [i32, i32]
@@ -42,6 +46,18 @@ class HostSHA256:
         lib.sha_host_merkle_tree.argtypes = [vp, i32, i32, vp, i32, vp, i32, vp, i32, i32]
         lib.sha_host_merkle_tree.restype = i32
         self.lib = lib
+
+    def leaf_blocks(self, blocks, offsets, counts, fill: int = 0) -> np.ndarray:
+        """sha256_leaf_blocks' thread step on the flat leaf buffer: blocks
+        (T, 64) uint8, offsets and counts (N,) int32 -> the (8, N) uint32
+        states, over an output first filled with `fill` (a column no
+        thread writes keeps it)."""
+        b = np.ascontiguousarray(blocks, dtype=np.uint8).reshape(-1, 64)
+        o, c = (np.ascontiguousarray(x, dtype=np.int32) for x in (offsets, counts))
+        n = c.shape[0]
+        st = np.full((8, n), fill, dtype=np.uint32)
+        self.lib.sha_host_leaf_blocks(b.ctypes.data, o.ctypes.data, c.ctypes.data, n, b.shape[0], st.ctypes.data)
+        return st
 
     def inner(self, left, right) -> np.ndarray:
         """The (8,) uint32 state of sha256(0x01 || left || right) from the

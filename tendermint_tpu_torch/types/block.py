@@ -1,10 +1,11 @@
-"""PartSetHeader, BlockID, CommitSig, Commit and Header: the port's copy
-of the parts of the JAX package's ``types/block.py`` that commit
+"""PartSetHeader, BlockID, CommitSig, Commit, Header and Data: the port's
+copy of the parts of the JAX package's ``types/block.py`` that commit
 verification and the light client read (reference types/block.go:
 Header :282, Header.Hash :393, Commit :572, CommitSig :468,
 Commit.VoteSignBytes :637, BlockID :957 region), with the templated
-sign-bytes (``Commit.sign_bytes_parts``) that the tabled path reads and
-the merkle roots ``Commit.hash`` and ``Header.hash``."""
+sign-bytes (``Commit.sign_bytes_parts``) that the tabled path reads, the
+merkle roots ``Commit.hash`` and ``Header.hash``, and the block body
+``Data`` (types/block.go Data) whose hash is its ``Txs``'s root."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from tendermint_tpu_torch.codec import signbytes
 from tendermint_tpu_torch.codec.binary import Reader, Writer
 from tendermint_tpu_torch.codec.signbytes import PRECOMMIT_TYPE, splice_timestamps
 from tendermint_tpu_torch.crypto import merkle
+from tendermint_tpu_torch.types.tx import Txs
 
 # Block protocol version (reference version/version.go BlockProtocol).
 BLOCK_PROTOCOL = 10
@@ -324,3 +326,31 @@ class Header:
         if len(self.proposer_address) not in (0, 20):
             return "invalid ProposerAddress length"
         return None
+
+
+@dataclass
+class Data:
+    """Block body: transactions (types/block.go Data)."""
+
+    txs: Txs = field(default_factory=Txs)
+    _hash: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    def hash(self, device=None) -> bytes:
+        """The block's data hash: the merkle root of its raw txs, on
+        `device` at or above the merkle threshold. Memoised."""
+        if self._hash is None:
+            self._hash = self.txs.hash(device=device)
+        return self._hash
+
+    def encode(self) -> bytes:
+        w = Writer()
+        w.write_uvarint(len(self.txs))
+        for tx in self.txs:
+            w.write_bytes(bytes(tx))
+        return w.bytes()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Data":
+        r = Reader(data)
+        n = r.read_uvarint()
+        return cls(txs=Txs([r.read_bytes() for _ in range(n)]))
